@@ -1,0 +1,123 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels are compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, and loaded
+with ``ctypes``. Nothing is compiled at import time: the CPU tests
+import every module of the package on machines with no ``nvcc``.
+
+The library's file name carries a hash of the sources and flags, so an
+edited kernel never loads a stale build; a build writes to a temporary
+name and renames it into place, so two processes building at once
+cannot load a half-written file.
+
+Every C entry point returns ``cudaGetLastError()`` right after its
+launch; :func:`check` turns a nonzero code into an exception (a refused
+launch never runs, and a later synchronise would not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of csrc/depth.cu's entry points (pointers and the stream
+# as c_void_p: a bare Python int would be passed as a 32-bit int).
+_MASK = (_P, _I, _I, _P, _I)  # mask, elem_bytes, n_paths, words, n_words
+SIGNATURES = {
+    "pollen_ell_tier": (_P, _I, _I, _I, _I, *_MASK, _P, _P, _P),
+    "pollen_cross_depth": (_P, _I, _I, _I, *_MASK, _P, _P, _P),
+    "pollen_ell_splitn": (
+        _I,  # number of tiers
+        _P, _I, _I, _P, _P,  # tier 0: slots, k, g, depth, uniq
+        _P, _I, _I, _P, _P,  # tier 1
+        _P, _I, _I, _P, _P,  # tier 2
+        _P, _I, _I, _P, _P,  # heavy: bytes, rows, nh_pad, depth, uniq
+        _I, _I,  # sub, pack16
+        *_MASK,
+        _P,  # stream
+    ),
+}
+
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in /usr/local/cuda/bin): "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libpollen_depth-{h.hexdigest()[:16]}.so"
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call in this checkout."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{build_log}"
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -1,0 +1,364 @@
+"""Depth queries: per-segment crossing counts and per-path mean depth.
+
+A port of pollen_tpu/ops/depth.py's single-query path (odgi ``depth -d``
+and ``depth -d -s``): the router picks the cheapest resident index with
+the reference's cost model, and the tiered split ELL ("ell") and
+crossing-matrix ("cross") routes run the CUDA kernels on a CUDA graph.
+A CPU graph follows the reference's CPU dispatch with plain versions.
+``plain=True`` runs a route's plain PyTorch version on any device (the
+reference's ``pallas=False``), which is what the kernels are held to.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pollen_tpu.flatgfa import GraphArrays
+
+from ..device import TorchGraph
+from ..kernels import crossmat as _cm
+from ..kernels import ellscan as _ell
+
+# Where the routes without a kernel in the port wait (ROADMAP.md).
+_NOT_PORTED = (
+    "the {route!r} masked-depth route has no CUDA kernel yet (ROADMAP.md "
+    "queue 1 item 5, scan family: kernels K6-K8); this graph routes "
+    "there because it has >= 2^16 paths or its indexes exceed "
+    "POLLEN_CROSS_BUDGET_MB"
+)
+
+
+def seg_depth_with_uniq(dg: TorchGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(depth, unique depth) per segment over all paths: boundary
+    differences of the ingest index, no per-step work."""
+    depth = dg.seg_bounds[1:] - dg.seg_bounds[:-1]
+    uniq = dg.run_seg_bounds[1:] - dg.run_seg_bounds[:-1]
+    return depth, uniq
+
+
+def _boundary_diff(csum: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Per-range sums for [bounds[i], bounds[i+1]) of the sequence whose
+    inclusive cumsum is ``csum``."""
+    padded = torch.cat([csum.new_zeros(1), csum])
+    v = padded[bounds.long()]
+    return v[1:] - v[:-1]
+
+
+def _extend_mask(dg: TorchGraph, path_mask: torch.Tensor) -> torch.Tensor:
+    """The mask as int32[P+1]: the padding sentinel path p maps to 0."""
+    m = torch.zeros(dg.num_paths + 1, dtype=torch.int32, device=dg.device)
+    m[: dg.num_paths] = path_mask.to(torch.int32)[: dg.num_paths]
+    return m
+
+
+def seg_depth_with_uniq_masked(
+    dg: TorchGraph, path_mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (depth, uniq) over the sorted step index (plain; the
+    reference's "scan"/"xla" routes)."""
+    w = _extend_mask(dg, path_mask)[dg.step_path_sorted.long()]
+    csum = torch.cumsum(w, 0)
+    depth = _boundary_diff(csum, dg.seg_bounds)
+    # First selected step of each (segment, path) group.
+    excl = csum - w
+    within = csum - excl[dg.run_start.long()]
+    first = (w != 0).to(torch.int64) * (within == 1).to(torch.int64)
+    uniq = _boundary_diff(torch.cumsum(first, 0), dg.seg_bounds)
+    return depth.to(torch.int32), uniq.to(torch.int32)
+
+
+def seg_depth_with_uniq_runs(
+    dg: TorchGraph, path_mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (depth, uniq) over the run-level index (plain; the
+    reference's "runs" route)."""
+    w = _extend_mask(dg, path_mask)[dg.run_path.long()]
+    depth = _boundary_diff(torch.cumsum(w * dg.run_count, 0), dg.run_seg_bounds)
+    uniq = _boundary_diff(torch.cumsum(w, 0), dg.run_seg_bounds)
+    return depth.to(torch.int32), uniq.to(torch.int32)
+
+
+def _residual(res: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
+    """Masked column sums of an int32 residual sidecar, exact int32."""
+    return (res * mp[:, None]).sum(dim=0, dtype=torch.int32)
+
+
+def seg_depth_with_uniq_cross(
+    dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (depth, uniq) over the dense crossing matrix plus its
+    residual sidecar."""
+    p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
+    m = _cm.pad_mask(path_mask[: dg.num_paths], p_pad)
+    fn = _cm.masked_cross_depth_plain if plain else _cm.masked_cross_depth
+    depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
+    if dg.cross_res_seg.numel():
+        fix = _residual(dg.cross_res, m)
+        # Sentinel padding columns carry an out-of-range segment id:
+        # route them to column 0 with a zero contribution.
+        valid = dg.cross_res_seg < depth.shape[0]
+        idx = torch.where(valid, dg.cross_res_seg, 0).long()
+        depth = depth.index_add(0, idx, fix * valid.to(torch.int32))
+    return depth[: dg.num_segments], uniq[: dg.num_segments]
+
+
+def seg_depth_with_uniq_ell_parts(
+    dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
+):
+    """Masked (depth, uniq) over the tiered split ELL index as per-class
+    part vectors ``(d1, u1, d2, u2, dh, uh)`` on the graph's device; the
+    tier-2 and heavy pairs are None when absent, and a third tier is
+    folded into the mid pair (tier-2 columns first). The heavy clip
+    residual is applied."""
+    _ell.check_ell_sub(dg.ell_sub)
+    m = path_mask.to(torch.int32)[: dg.num_paths]
+    has_mid = dg.cross_ell2.numel() > 0
+    has_mid2 = dg.cross_ell3.numel() > 0
+    has_heavy = dg.ell_heavy.numel() > 0
+    # The reference fuses only when the heavy block is SEG_BLOCK padded
+    # (its rotated output tiles); the port keeps the same split so that
+    # both kernels of the unfused form stay on the path for small graphs.
+    fusable = has_heavy and dg.ell_heavy.shape[1] % _cm.SEG_BLOCK == 0
+    pack16 = bool(dg.ell_pack16)
+    heavy_p_pad = dg.ell_heavy.shape[0] * 2
+
+    def tier(tall, k):
+        if plain:
+            return _ell.masked_ell_depth_tall_plain(tall, m, k, pack16)
+        return _ell.masked_ell_depth_tall(tall, m, k, pack16=pack16)
+
+    def cat_mid(d2, u2, d3, u3):
+        nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
+        return torch.cat([d2[:nm], d3[:nm2]]), torch.cat([u2[:nm], u3[:nm2]])
+
+    tiers = [(dg.cross_ell, dg.ell_k)]
+    if has_mid:
+        tiers.append((dg.cross_ell2, dg.ell_k2))
+    if has_mid2:
+        tiers.append((dg.cross_ell3, dg.ell_k3))
+    dh = uh = None
+    if fusable and not plain:
+        outs = _ell.masked_ell_splitn_depth(
+            [t for t, _ in tiers], dg.ell_heavy, m,
+            ks=[k for _, k in tiers], pack16=pack16,
+        )
+        parts = [outs[2 * i : 2 * i + 2] for i in range(len(tiers))]
+        dh, uh = outs[-2], outs[-1]
+    else:
+        parts = [tier(t, k) for t, k in tiers]
+        if has_heavy:
+            mp = _cm.pad_mask(m, heavy_p_pad)
+            fn = _cm.masked_cross_depth_plain if plain else _cm.masked_cross_depth
+            dh, uh = fn(dg.ell_heavy, mp, nibble=True)
+    d1, u1 = parts[0]
+    d2 = u2 = None
+    if has_mid:
+        d2, u2 = parts[1]
+    if has_mid2:
+        d3, u3 = parts[-1]
+        d2, u2 = cat_mid(d2, u2, d3, u3) if has_mid else (d3, u3)
+    if has_heavy and dg.ell_heavy_res_col.numel():
+        # Overflow columns occupy the heavy block's prefix (ingest).
+        # dh is this query's own fresh output, so the add is in place.
+        fix = _residual(dg.ell_heavy_res, _cm.pad_mask(m, heavy_p_pad))
+        dh[: dg.ell_heavy_res.shape[1]] += fix
+    return d1, u1, d2, u2, dh, uh
+
+
+def seg_depth_with_uniq_ell(
+    dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (depth, uniq) over the tiered split ELL index in natural
+    segment order, composed and un-permuted on the host (CPU tensors)."""
+    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_parts(
+        dg, path_mask, plain=plain
+    )
+    n = dg.num_segments
+    if d2 is None and dh is None and not dg.ell_order.shape[0]:
+        return d1[:n].cpu(), u1[:n].cpu()
+    nl, nh = dg.ell_num_light, dg.ell_num_heavy
+    nm = dg.ell_num_mid + dg.ell_num_mid2
+    ne = n - nl - nm - nh
+    dparts = [d1.cpu().numpy()[:nl]]
+    uparts = [u1.cpu().numpy()[:nl]]
+    if d2 is not None:
+        dparts.append(d2.cpu().numpy()[:nm])
+        uparts.append(u2.cpu().numpy()[:nm])
+    if dh is not None:
+        dparts.append(dh.cpu().numpy()[:nh])
+        uparts.append(uh.cpu().numpy()[:nh])
+    dparts.append(np.zeros(ne, np.int32))
+    uparts.append(np.zeros(ne, np.int32))
+    d = np.concatenate(dparts)
+    u = np.concatenate(uparts)
+    if dg.ell_order.shape[0]:
+        inv = np.empty(n, np.int64)
+        inv[dg.ell_order.cpu().numpy()] = np.arange(n)
+        d, u = d[inv], u[inv]
+    return torch.from_numpy(d), torch.from_numpy(u)
+
+
+# Router constants, unchanged from the reference (TPU fits,
+# pollen_tpu/ops/depth.py): the port routes every graph as the reference
+# does until H100 constants are measured.
+_SCAN_EQUIV_BYTES = 270
+_RUNS_EQUIV_BYTES = 1380
+_BND_EQUIV_BYTES = 1000
+_BND_XLA_EQUIV_BYTES = 6100
+_XLA_EQUIV_BYTES = 6700
+
+
+def _masked_impl_costs(dg: TorchGraph) -> dict:
+    """Equivalent streamed bytes per masked-depth query, per resident
+    index (shape arithmetic only)."""
+
+    def bnd(planned: bool) -> int:
+        per = _BND_EQUIV_BYTES if planned else _BND_XLA_EQUIV_BYTES
+        return per * (dg.num_segments + 1)
+
+    costs = {
+        "scan": _SCAN_EQUIV_BYTES * dg.padded_steps + bnd(dg.bnd_w_rows > 0),
+        "xla": _XLA_EQUIV_BYTES * dg.padded_steps,
+    }
+    if dg.run_path.shape[0]:
+        costs["runs"] = _RUNS_EQUIV_BYTES * dg.run_path.shape[0] + bnd(
+            dg.bnd2_w_rows > 0
+        )
+    if dg.cross_matrix.numel():
+        costs["cross"] = dg.cross_matrix.numel() + 4 * dg.cross_res.numel()
+    if dg.cross_ell.numel():
+        a = _ell.c_slot_a(-(-max(dg.num_paths, 1) // 32))
+        cost_ell = 0.0
+        for tall, k in (
+            (dg.cross_ell, dg.ell_k),
+            (dg.cross_ell2, dg.ell_k2),
+            (dg.cross_ell3, dg.ell_k3),
+        ):
+            if tall.numel() and k:
+                size = tall.numel()
+                cost_ell += _ell.C_TIER_FIXED + a * size + _ell.C_COL_B * size / k
+        if dg.ell_heavy.numel():
+            cost_ell += (
+                _ell.C_TIER_FIXED
+                + _ell.C_HEAVY_PER_BYTE * dg.ell_heavy.numel()
+                + 8 * dg.ell_heavy_res.numel()
+            )
+        costs["ell"] = cost_ell
+    return costs
+
+
+def _best_masked_impl(dg: TorchGraph) -> str:
+    costs = _masked_impl_costs(dg)
+    return min(costs, key=costs.get)
+
+
+def masked_seg_depth(
+    dg: TorchGraph, path_mask: torch.Tensor
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Routed masked (depth, uniq) per segment, as host int32 arrays."""
+    path_mask = path_mask.to(dg.device)
+    best = _best_masked_impl(dg)
+    on_cuda = dg.device.type == "cuda"
+    if best == "ell":
+        depth, uniq = seg_depth_with_uniq_ell(dg, path_mask, plain=not on_cuda)
+    elif best == "cross":
+        depth, uniq = seg_depth_with_uniq_cross(
+            dg, path_mask, plain=not on_cuda
+        )
+    elif on_cuda:
+        raise NotImplementedError(_NOT_PORTED.format(route=best))
+    elif dg.run_path.shape[0]:
+        depth, uniq = seg_depth_with_uniq_runs(dg, path_mask)
+    else:
+        depth, uniq = seg_depth_with_uniq_masked(dg, path_mask)
+    return depth.cpu().numpy(), uniq.cpu().numpy()
+
+
+def path_depth(dg: TorchGraph) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bp length, bp-weighted depth sum) per path, int64."""
+    seg_depth = dg.seg_bounds[1:] - dg.seg_bounds[:-1]
+    step_seg = (dg.steps >> 1).long()
+    lens = dg.seg_len[step_seg].long()
+    weighted = seg_depth[step_seg].long() * lens
+    path_len = _boundary_diff(torch.cumsum(lens, 0), dg.path_bounds)
+    path_sum = _boundary_diff(torch.cumsum(weighted, 0), dg.path_bounds)
+    return path_len, path_sum
+
+
+# ---------------------------------------------------------------------------
+# Host-side emitters (odgi-compatible TSV), as the reference renders them
+# ---------------------------------------------------------------------------
+
+
+def format_float(x: float, digits: int) -> str:
+    """odgi-style float: fixed digits, then strip trailing zeros/dot."""
+    return f"{x:.{digits}f}".rstrip("0").rstrip(".")
+
+
+def seg_depth_table(
+    g: GraphArrays, depths: np.ndarray, uniqs: np.ndarray
+) -> str:
+    names = g.seg_name.astype("U20")
+    body = [
+        f"{n}\t{d}\t{u}"
+        for n, d, u in zip(names, np.asarray(depths), np.asarray(uniqs))
+    ]
+    return "\n".join(["#node.id\tdepth\tdepth.uniq"] + body) + "\n"
+
+
+def path_depth_table(
+    g: GraphArrays,
+    lengths: np.ndarray,
+    sums: np.ndarray,
+    path_ids: Optional[Sequence[int]] = None,
+) -> str:
+    ids = range(g.num_paths) if path_ids is None else path_ids
+    lines = ["#path\tstart\tend\tmean.depth"]
+    for i in ids:
+        mean = float(sums[i]) / float(lengths[i])
+        lines.append(
+            f"{g.path_name_bytes(i).decode()}\t0\t{int(lengths[i])}\t"
+            f"{format_float(mean, 2)}"
+        )
+    return "\n".join(lines) + "\n"
+
+
+def path_mask_for(g: GraphArrays, subset: Sequence[str]) -> np.ndarray:
+    wanted = {s.encode() for s in subset}
+    return np.array(
+        [g.path_name_bytes(i) in wanted for i in range(g.num_paths)],
+        dtype=bool,
+    )
+
+
+def run_seg_depth(
+    g: GraphArrays,
+    dg: TorchGraph,
+    subset_paths: Optional[List[str]] = None,
+) -> str:
+    """End-to-end segment depth query (``depth -d [-s FILE]``): device
+    query plus TSV rendering."""
+    if subset_paths is None:
+        depth, uniq = (t.cpu().numpy() for t in seg_depth_with_uniq(dg))
+    else:
+        mask = torch.from_numpy(path_mask_for(g, subset_paths))
+        depth, uniq = masked_seg_depth(dg, mask)
+    return seg_depth_table(g, depth, uniq)
+
+
+def run_path_depth(
+    g: GraphArrays,
+    dg: TorchGraph,
+    paths: Optional[List[str]] = None,
+) -> str:
+    lengths, sums = path_depth(dg)
+    ids = None
+    if paths is not None:
+        by_name = {g.path_name_bytes(i): i for i in range(g.num_paths)}
+        ids = [by_name[p.encode()] for p in paths if p.encode() in by_name]
+    return path_depth_table(
+        g, lengths.cpu().numpy(), sums.cpu().numpy(), ids
+    )

@@ -1,0 +1,107 @@
+"""Port crossing-matrix module (pollen_tpu_torch.kernels.crossmat)
+against the JAX reference: layout helpers, the plain GEMV, and the
+kernel wrapper's CPU path against the Pallas kernel in interpret mode.
+All comparisons are exact (integer counts, tolerance 0).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pollen_tpu.kernels import crossmat as ref
+from pollen_tpu_torch.kernels import crossmat as port
+
+torch.set_num_threads(1)
+
+
+def _matrix(rng, p_pad, n_pad, nibble, density=0.4):
+    if nibble:
+        a = rng.integers(0, 256, (p_pad // 2, n_pad)).astype(np.uint8)
+        a[rng.random(a.shape) > density] = 0
+        return a
+    a = rng.integers(0, 128, (p_pad, n_pad)).astype(np.int8)
+    a[rng.random(a.shape) > density] = 0
+    return a
+
+
+def test_constants_match_reference():
+    for name in ("LANES", "SEG_BLOCK", "CLIP", "CLIP_NIBBLE", "RES_SENTINEL"):
+        assert getattr(port, name) == getattr(ref, name), name
+
+
+def test_fold_and_unpack_match_reference():
+    rng = np.random.default_rng(0)
+    a = _matrix(rng, 256, 384, nibble=True)
+    assert np.array_equal(
+        np.asarray(ref.unpack_cross(jnp.asarray(a))),
+        port.unpack_cross(torch.from_numpy(a)).numpy(),
+    )
+    v = rng.integers(0, 2, 256).astype(np.int32)
+    assert np.array_equal(
+        np.asarray(ref.fold_mask(jnp.asarray(v))),
+        port.fold_mask(torch.from_numpy(v)).numpy(),
+    )
+
+
+@pytest.mark.parametrize("nibble", [True, False])
+@pytest.mark.parametrize("p_pad", [128, 384])
+def test_masked_cross_depth_plain_matches_xla(nibble, p_pad):
+    rng = np.random.default_rng(p_pad + nibble)
+    a = _matrix(rng, p_pad, 1024, nibble)
+    mask = rng.integers(0, 2, p_pad).astype(np.int32)
+    d_r, u_r = ref.masked_cross_depth_xla(
+        jnp.asarray(a), jnp.asarray(mask), nibble=nibble
+    )
+    d_p, u_p = port.masked_cross_depth_plain(
+        torch.from_numpy(a), torch.from_numpy(mask), nibble=nibble
+    )
+    assert d_p.dtype == torch.int32 and u_p.dtype == torch.int32
+    assert np.array_equal(np.asarray(d_r), d_p.numpy())
+    assert np.array_equal(np.asarray(u_r), u_p.numpy())
+
+
+@pytest.mark.parametrize("nibble", [True, False])
+def test_cross_wrapper_matches_pallas_interpret(nibble):
+    rng = np.random.default_rng(5 + nibble)
+    p_pad = 128
+    a = _matrix(rng, p_pad, 1024, nibble)
+    mask = rng.integers(0, 2, p_pad).astype(np.int32)
+    d_r, u_r = ref.masked_cross_depth(
+        jnp.asarray(a), jnp.asarray(mask), nibble=nibble, interpret=True
+    )
+    before = dict(port.launches)
+    d_p, u_p = port.masked_cross_depth(
+        torch.from_numpy(a), torch.from_numpy(mask), nibble=nibble
+    )
+    assert port.launches == before  # the CPU path launches no kernel
+    assert np.array_equal(np.asarray(d_r), d_p.numpy())
+    assert np.array_equal(np.asarray(u_r), u_p.numpy())
+    # Depth-only variant, and a mask shorter than P_pad (num_paths).
+    d_only = port.masked_cross_depth(
+        torch.from_numpy(a), torch.from_numpy(mask[:100]), nibble=nibble,
+        uniq=False,
+    )
+    d_short = ref.masked_cross_depth_xla(
+        jnp.asarray(a),
+        jnp.asarray(np.concatenate([mask[:100], np.zeros(28, np.int32)])),
+        nibble=nibble,
+    )[0]
+    assert isinstance(d_only, torch.Tensor)
+    assert np.array_equal(np.asarray(d_short), d_only.numpy())
+
+
+def test_cross_wrapper_checks_inputs():
+    mask = torch.ones(128, dtype=torch.int32)
+    a = torch.zeros((64, 256), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        port.masked_cross_depth(a, mask, nibble=False)  # uint8 is nibble
+    with pytest.raises(TypeError):
+        port.masked_cross_depth(a.to(torch.int8), mask, nibble=True)
+    with pytest.raises(ValueError):
+        port.masked_cross_depth(a[:, :200].contiguous(), mask, nibble=True)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(64 * 256 + 1, dtype=torch.uint8)
+        port.masked_cross_depth(flat[1:].view(64, 256), mask, nibble=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        port.masked_cross_depth(a.to("meta"), mask.to("meta"), nibble=True)
