@@ -5,29 +5,39 @@
 
 Run from a checkout of the repository on a machine with one CUDA card,
 ``nvcc`` and PyTorch (no JAX needed). It builds the port's CUDA kernels
-from ``pollen_tpu_torch/csrc`` and then:
+from ``pollen_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel)
+and then:
 
-1. holds every kernel (fused split ELL K1, crossing matrix K2 in both
-   layouts and depth-only, tall tier K3 with pack16 and 32-bit slots)
-   against its plain PyTorch version on the card, on all fixture graphs
-   with 4 seeded masks: exact equality;
-2. drives the main path through the user's entry points: ``fgfa-torch
-   --device cuda depth -d`` and ``depth -d -s`` on every fixture, byte
-   for byte against the goldens, and a ``serve`` loop of three requests;
+1. holds every kernel against its plain PyTorch version on the card,
+   on all fixture graphs, exact: fused split ELL K1, crossing matrix K2
+   in both layouts and depth-only, tall tier K3 with pack16 and 32-bit
+   slots (4 seeded masks each); the batched split ELL K4 on 1-3 tiers,
+   with and without a heavy block, and the batched crossing matrix K5
+   in both layouts, at Q = 1, 5, 32 and 40 seeded masks;
+2. drives the main paths through the user's entry points: ``fgfa-torch
+   --device cuda depth -d``, ``depth -d -s`` and ``depth -d -S`` on
+   every fixture, byte for byte against the goldens, and a ``serve``
+   loop of four requests (one ``-S``);
 3. ingests synthetic graphs at bench and chromosome scale, sends 8
-   masks each through the routed ``depth -d -s`` query, and checks the
-   result against the plain PyTorch path on the card and an independent
-   numpy reference; then times one query, kernel against plain.
+   masks each through the routed ``depth -d -s`` query and a batch of
+   32 through the routed batch query (also under a batch plan and on
+   bench's crossing matrix), and checks each answer against the plain
+   PyTorch path on the card and an independent numpy reference; then
+   times one query, the batch at Q = 1, 8, 16, 32, and each kernel,
+   kernel against plain.
 
-Launch counts are reset right before phase 2 and read right after
-phase 3's queries: every kernel must have been launched by the main
-path. Exits nonzero at the first failed check. The second-to-last line
-is one JSON object with each kernel's launches, error and time; the
-last is ``{"ok": true, "device": {...}}``.
+Launch counts are set to 0 right before each main path (the single
+query: phase 2's single-query requests and phase 3's queries; the
+batch: phase 2's ``-S`` requests and phase 3's batches) and read right
+after it: every kernel must have been launched by its path. Exits
+nonzero at the first failed check. The second-to-last line is one JSON
+object with each kernel's launches, error and time; the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -35,16 +45,31 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent
 SRC = "pollen_tpu_torch/csrc/depth.cu"
-# name -> (TPU kernel replaced, launch-count key)
+SRC_BATCH = "pollen_tpu_torch/csrc/depth_batch.cu"
+# name -> (source, TPU kernel replaced, launch-count key)
 KERNELS = {
-    "ell_splitn (K1)": ("pollen_tpu/kernels/ellscan.py:539", "ell_splitn"),
-    "cross (K2)": ("pollen_tpu/kernels/crossmat.py:102", "cross"),
-    "ell_tier (K3)": ("pollen_tpu/kernels/ellscan.py:474", "ell_tier"),
+    "ell_splitn (K1)": (SRC, "pollen_tpu/kernels/ellscan.py:539", "ell_splitn"),
+    "cross (K2)": (SRC, "pollen_tpu/kernels/crossmat.py:102", "cross"),
+    "ell_tier (K3)": (SRC, "pollen_tpu/kernels/ellscan.py:474", "ell_tier"),
+    "ell_splitn_batch (K4)": (
+        SRC_BATCH, "pollen_tpu/kernels/ellscan.py:882", "ell_splitn_batch"
+    ),
+    "cross_batch (K5)": (
+        SRC_BATCH, "pollen_tpu/kernels/crossmat.py:290", "cross_batch"
+    ),
 }
+# The kernels of each main path: the single query, then the batch.
+SINGLE_PATH = ("ell_splitn (K1)", "cross (K2)", "ell_tier (K3)")
+BATCH_PATH = ("ell_splitn_batch (K4)", "cross_batch (K5)")
+# Batch sizes of phase 1 (40: over the kernels' 32-query chunk) and of
+# the batch timing.
+KERNEL_QS = (1, 5, 32, 40)
+TIMING_QS = (1, 8, 16, 32)
 # Synthetic graphs of phase 3: (steps, segments, paths), seed 8.
 SCALE = {
     "bench": (2**22, 2**18, 128),
@@ -81,7 +106,7 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=60, warm=5):
+def cuda_ms(fn, reps=30, warm=5):
     """Median device time of one call, CUDA events around each call."""
     import torch
 
@@ -102,15 +127,15 @@ def cuda_ms(fn, reps=60, warm=5):
 
 def device_profile(fn, reps=30):
     """Device time per call by kernel name (torch.profiler, CUPTI), as
-    {name: us}; empty when the trace holds no device events."""
+    {name: us}; empty when the trace holds no device events. Only device
+    activity is traced: host events of plain calls (thousands of small
+    operations) would make the trace slow to read back."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -156,7 +181,13 @@ class Errors:
     def compare(self, name, got, want, what):
         import torch
 
+        need(len(got) == len(want), f"{name} {what}: {len(got)} outputs, "
+             f"plain gives {len(want)}")
         for g, w in zip(got, want):
+            need((g is None) == (w is None), f"{name} {what}: class present "
+                 "in one result only")
+            if g is None:
+                continue
             need(g.shape == w.shape and g.dtype == w.dtype,
                  f"{name} {what}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
             err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
@@ -171,7 +202,7 @@ def phase_kernels(errs: Errors):
     import torch
 
     from pollen_tpu_torch import parse_gfa_file
-    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.device import _nibble_pack, build_graph
     from pollen_tpu_torch.kernels import crossmat as cm
     from pollen_tpu_torch.kernels import ellscan as ell
 
@@ -251,9 +282,82 @@ def phase_kernels(errs: Errors):
                     ell.masked_ell_splitn_depth_plain(*args, pack16=p16),
                     f"{what} fused pack16={p16}",
                 )
+        # The batched kernels at Q = 1, 5 (ragged), 32 and 40 (two query
+        # chunks): K5 on a nibble and an int8 matrix from the run index;
+        # K4 on 1, 2 and 3 tiers (the fixture's tiers, repeated where it
+        # has fewer), with and without a heavy block (the fixture's own,
+        # else the nibble matrix), pack16 and 32-bit slots.
+        a4 = torch.from_numpy(
+            _nibble_pack(
+                dg16.run_path[:r].cpu().numpy(), run_seg,
+                np.minimum(dg16.run_count[:r].cpu().numpy(), cm.CLIP_NIBBLE),
+                p_pad, n_pad,
+            )
+        ).cuda()
+        no_heavy = torch.zeros((0, 0), dtype=torch.uint8, device="cuda")
+        for q in KERNEL_QS:
+            ms = torch.from_numpy(
+                rng.random((q, g.num_paths)) < rng.random((q, 1))
+            ).cuda()
+            for a, nib in ((a4, True), (a8, False)):
+                errs.compare(
+                    "cross_batch (K5)",
+                    cm.batched_cross_depth(a, ms, nibble=nib),
+                    cm.batched_cross_depth_plain(
+                        a, cm.pad_mask(ms, p_pad), nibble=nib
+                    ),
+                    f"{path.name} Q={q} nibble={nib}",
+                )
+            for dg in (dg16, dg32):
+                tiers = [
+                    (t, k)
+                    for t, k in (
+                        (dg.cross_ell, dg.ell_k),
+                        (dg.cross_ell2, dg.ell_k2),
+                        (dg.cross_ell3, dg.ell_k3),
+                    )
+                    if t.numel()
+                ]
+                p16 = bool(dg.ell_pack16)
+                heavy = dg.ell_heavy if dg.ell_heavy.numel() else a4
+                for nt in (1, 2, 3):
+                    use = [tiers[i % len(tiers)] for i in range(nt)]
+                    for h in (heavy, no_heavy):
+                        args = ([t for t, _ in use], h, ms, [k for _, k in use])
+                        errs.compare(
+                            "ell_splitn_batch (K4)",
+                            ell.masked_ell_splitn_depth_batch(
+                                *args, pack16=p16
+                            ),
+                            ell.masked_ell_splitn_depth_batch_plain(
+                                *args, pack16=p16
+                            ),
+                            f"{path.name} Q={q} tiers={nt} "
+                            f"heavy={bool(h.numel())} pack16={p16}",
+                        )
+    # K4 on tiers wider than its 8-word register bucket (run in chunks
+    # that add into the outputs): random slot words, each bit pattern a
+    # valid slot in both layouts.
+    gen = torch.Generator().manual_seed(0)
+    ms = torch.from_numpy(rng.random((40, 300)) < 0.5).cuda()
+    for k in (11, 20):
+        tall = torch.randint(-2**31, 2**31, (k * ell.SUB, ell.TALL_W),
+                             dtype=torch.int32, generator=gen)
+        tall[torch.rand(tall.shape, generator=gen) < 0.3] = 0
+        tall = tall.cuda()
+        for p16 in (False, True):
+            args = ([tall], no_heavy, ms, [k])
+            errs.compare(
+                "ell_splitn_batch (K4)",
+                ell.masked_ell_splitn_depth_batch(*args, pack16=p16),
+                ell.masked_ell_splitn_depth_batch_plain(*args, pack16=p16),
+                f"random tier k={k} pack16={p16}",
+            )
     torch.cuda.synchronize()
     print("phase 1: kernels equal their plain versions on 8 fixtures, "
-          "4 masks each (tolerance 0: exact integer counts)", flush=True)
+          "4 masks each, batches at Q = "
+          f"{', '.join(map(str, KERNEL_QS))} (tolerance 0: exact integer "
+          "counts)", flush=True)
 
 
 def run_cli(argv, stdin_text=""):
@@ -264,7 +368,21 @@ def run_cli(argv, stdin_text=""):
     return out.getvalue()
 
 
-def phase_goldens():
+def batch_file(tmp: pathlib.Path, path: pathlib.Path) -> pathlib.Path:
+    """A ``depth -S`` file for a fixture: the golden subset comma-joined,
+    then every path name."""
+    from pollen_tpu_torch import parse_gfa_file
+
+    names = [b.decode() for b in parse_gfa_file(str(path)).path_names()]
+    subset = (REPO / "tests" / "golden" / f"{path.stem}.depthpaths")
+    out = tmp / f"{path.stem}.batch"
+    out.write_text(
+        ",".join(subset.read_text().split()) + "\n" + " ".join(names) + "\n"
+    )
+    return out
+
+
+def phase_goldens(tmp: pathlib.Path):
     """Phase 2: the user's entry points on the fixtures, on the card."""
     graphs = REPO / "tests" / "graphs"
     golden = REPO / "tests" / "golden"
@@ -280,18 +398,42 @@ def phase_goldens():
         need(got == (golden / f"{stem}.depth_subset").read_text(),
              f"depth -d -s differs from the golden on {path.name}")
     subset = golden / "rand1.depthpaths"
-    requests = f"depth -d -s {subset}\ndepth -d\ndepth -d -s {subset}\n"
+    batch = batch_file(tmp, graphs / "rand1.gfa")
+    requests = (f"depth -d -s {subset}\ndepth -d\ndepth -d -s {subset}\n"
+                f"depth -d -S {batch}\n")
     text = run_cli(
         ["--device", "cuda", "-I", str(graphs / "rand1.gfa"), "serve"],
         requests,
     )
     frames = [ln for ln in text.splitlines() if ln.startswith("##end")]
-    need(frames == ["##end\tok"] * 3, f"serve frames: {frames}")
+    need(frames == ["##end\tok"] * 4, f"serve frames: {frames}")
     want = (golden / "rand1.depth_subset").read_text()
     need(text.startswith(want + "##end\tok\n"), "serve answer differs")
+    want_batch = ("##query\t0\n" + want + "##query\t1\n"
+                  + (golden / "rand1.depth").read_text())
+    need(text.endswith(want_batch + "##end\tok\n"),
+         "serve's depth -d -S answer differs")
     print("phase 2: goldens byte-identical on cuda for 8 fixtures "
-          "(depth -d, depth -d -s); serve answered 3 requests ##end ok",
-          flush=True)
+          "(depth -d, depth -d -s); serve answered 4 requests ##end ok "
+          "(one depth -d -S)", flush=True)
+
+
+def phase_goldens_batch(tmp: pathlib.Path):
+    """Phase 2 (batch): ``depth -d -S`` on every fixture, on the card,
+    against the goldens of its two subsets."""
+    golden = REPO / "tests" / "golden"
+    for path in sorted((REPO / "tests" / "graphs").glob("*.gfa")):
+        batch = batch_file(tmp, path)
+        got = run_cli(["--device", "cuda", "-I", str(path), "depth", "-d",
+                       "-S", str(batch)])
+        want = ("##query\t0\n"
+                + (golden / f"{path.stem}.depth_subset").read_text()
+                + "##query\t1\n"
+                + (golden / f"{path.stem}.depth").read_text())
+        need(got == want, f"depth -d -S differs from the goldens on "
+             f"{path.name}")
+    print("phase 2 (batch): depth -d -S byte-identical to the goldens on "
+          "cuda for 8 fixtures", flush=True)
 
 
 def scale_masks(p, rng):
@@ -302,18 +444,27 @@ def scale_masks(p, rng):
     return masks
 
 
-def numpy_reference(dg, mask):
-    import numpy as np
+class NumpyReference:
+    """Masked (depth, uniq) from the run index alone, in numpy: an
+    independent reference. The run arrays are copied to the host once."""
 
-    rsb = dg.run_seg_bounds.cpu().numpy()
-    r = int(rsb[-1])
-    run_seg = np.repeat(np.arange(dg.num_segments), np.diff(rsb))
-    run_path = dg.run_path[:r].cpu().numpy()
-    run_count = dg.run_count[:r].cpu().numpy()
-    w = mask[run_path]
-    depth = np.bincount(run_seg, w * run_count, minlength=dg.num_segments)
-    uniq = np.bincount(run_seg, w, minlength=dg.num_segments)
-    return depth.astype(np.int64), uniq.astype(np.int64)
+    def __init__(self, dg):
+        import numpy as np
+
+        rsb = dg.run_seg_bounds.cpu().numpy()
+        r = int(rsb[-1])
+        self.n = dg.num_segments
+        self.run_seg = np.repeat(np.arange(self.n), np.diff(rsb))
+        self.run_path = dg.run_path[:r].cpu().numpy()
+        self.run_count = dg.run_count[:r].cpu().numpy()
+
+    def __call__(self, mask):
+        import numpy as np
+
+        w = mask[self.run_path]
+        depth = np.bincount(self.run_seg, w * self.run_count, minlength=self.n)
+        uniq = np.bincount(self.run_seg, w, minlength=self.n)
+        return depth.astype(np.int64), uniq.astype(np.int64)
 
 
 def index_bytes(dg) -> int:
@@ -323,6 +474,18 @@ def index_bytes(dg) -> int:
             dg.cross_ell, dg.cross_ell2, dg.cross_ell3, dg.ell_heavy,
             dg.ell_heavy_res, dg.ell_heavy_res_col,
         )
+    )
+
+
+def plan_of(dg) -> dict:
+    return dict(
+        ks=[k for k in (dg.ell_k, dg.ell_k2, dg.ell_k3) if k],
+        pack16=dg.ell_pack16,
+        tier_cols=[dg.ell_num_light, dg.ell_num_mid, dg.ell_num_mid2],
+        heavy_cols=dg.ell_num_heavy,
+        heavy_block=list(dg.ell_heavy.shape),
+        fused=dg.ell_heavy.shape[1] % 8192 == 0,
+        index_bytes=index_bytes(dg),
     )
 
 
@@ -344,24 +507,17 @@ def phase_scale(graphs: dict):
         ingest_s = time.perf_counter() - t0
         pick = depth_op._best_masked_impl(dg)
         need(pick == "ell", f"{name}: router picked {pick!r}, expected 'ell'")
-        plan = dict(
-            ks=[k for k in (dg.ell_k, dg.ell_k2, dg.ell_k3) if k],
-            pack16=dg.ell_pack16,
-            tier_cols=[dg.ell_num_light, dg.ell_num_mid, dg.ell_num_mid2],
-            heavy_cols=dg.ell_num_heavy,
-            heavy_block=list(dg.ell_heavy.shape),
-            fused=dg.ell_heavy.shape[1] % 8192 == 0,
-            index_bytes=index_bytes(dg),
-        )
+        plan = plan_of(dg)
         print(f"{name}: {shape[0]} steps, {shape[1]} segments, {shape[2]} "
               f"paths; ingest {ingest_s:.3f} s; router {pick}; plan {plan}",
               flush=True)
+        reference = NumpyReference(dg)
         before = launch_counts()
         names = [b.decode() for b in g.path_names()]
         for i, m in enumerate(scale_masks(g.num_paths, rng)):
             mt = torch.from_numpy(m)
             d, u = depth_op.masked_seg_depth(dg, mt)
-            d_ref, u_ref = numpy_reference(dg, m)
+            d_ref, u_ref = reference(m)
             need(np.array_equal(d, d_ref) and np.array_equal(u, u_ref),
                  f"{name} mask {i}: differs from the numpy reference")
             d_pl, u_pl = depth_op.seg_depth_with_uniq_ell(
@@ -382,10 +538,128 @@ def phase_scale(graphs: dict):
         need(moved[key] >= 8, f"{name}: {key} launches {moved}")
         print(f"{name}: 8 masks equal numpy reference and plain torch; "
               f"launches {moved}", flush=True)
-        graphs[name] = (g, dg)
+        graphs[name] = (g, dg, reference)
 
 
-def phase_timing(graphs: dict, card: str) -> dict:
+def batch_masks(p, rng):
+    """The 8 scale masks plus 24 seeded draws of varied density: Q = 32."""
+    import numpy as np
+
+    draws = rng.random((24, p)) < rng.random((24, 1))
+    return np.concatenate([np.stack(scale_masks(p, rng)), draws])
+
+
+def phase_scale_batch(graphs: dict) -> dict:
+    """Phase 3 (batch): Q = 32 masks through the routed batch query on
+    the scale graphs, plus bench under a batch plan (32-bit slots), under
+    the single-query plan with 32-bit slots, and bench's crossing matrix
+    alone (the routed cross batch). Returns {name: (graph, device graph,
+    route)}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.ops import depth as depth_op
+
+    g_bench, _, ref_bench = graphs["bench"]
+    dg_batch = build_graph(g_bench, "cuda", ell_objective="batch")
+    need(dg_batch.ell_pack16 == 0 and dg_batch.cross_ell.numel(),
+         "bench_batch: expected a 32-bit ELL plan")
+    os.environ["POLLEN_ELL_PACK16"] = "0"
+    try:
+        dg_32 = build_graph(g_bench, "cuda")
+    finally:
+        del os.environ["POLLEN_ELL_PACK16"]
+    need(dg_32.ell_pack16 == 0, "bench_32bit: expected 32-bit slots")
+    for name, dg in (("bench_batch", dg_batch), ("bench_32bit", dg_32)):
+        print(f"{name}: plan {plan_of(dg)}", flush=True)
+    # bench with its dense matrix forced resident and the ELL index
+    # dropped: the batch router then takes the crossing matrix.
+    dg_cross = build_graph(g_bench, "cuda", cross_matrix="always")
+    dg_cross = dataclasses.replace(
+        dg_cross, cross_ell=dg_cross.cross_ell[:0]
+    )
+    batch = {
+        "bench": graphs["bench"],
+        "bench_batch": (g_bench, dg_batch, ref_bench),
+        "bench_32bit": (g_bench, dg_32, ref_bench),
+        "bench_p300": graphs["bench_p300"],
+        "chr8_third": graphs["chr8_third"],
+        "bench_cross": (g_bench, dg_cross, ref_bench),
+    }
+    rng = np.random.default_rng(32)
+    out = {}
+    for name, (g, dg, reference) in batch.items():
+        route = depth_op.batch_route(dg)
+        want = "cross" if name == "bench_cross" else "ell"
+        need(route == want, f"{name}: batch route {route!r}, want {want!r}")
+        masks = batch_masks(g.num_paths, rng)
+        mt = torch.from_numpy(masks)
+        before = launch_counts()
+        d, u = depth_op.seg_depth_with_uniq_batch(dg, mt)
+        after = launch_counts()
+        need(d.shape == (32, g.num_segments), f"{name}: shape {d.shape}")
+        for i, m in enumerate(masks):
+            d_ref, u_ref = reference(m)
+            need(np.array_equal(d[i], d_ref) and np.array_equal(u[i], u_ref),
+                 f"{name} batch row {i}: differs from the numpy reference")
+        if route == "ell":
+            d_pl, u_pl = depth_op.seg_depth_with_uniq_ell_batch(
+                dg, mt.cuda(), plain=True
+            )
+        else:
+            d_pl, u_pl = (
+                x.cpu().numpy()
+                for x in depth_op.seg_depth_with_uniq_cross_batch(
+                    dg, mt.cuda(), plain=True
+                )
+            )
+        need(np.array_equal(d, d_pl) and np.array_equal(u, u_pl),
+             f"{name}: batch differs from the plain torch path")
+        moved = {k: after[k] - before[k] for k in after}
+        key = "ell_splitn_batch" if route == "ell" else "cross_batch"
+        need(moved[key] >= 1, f"{name}: {key} launches {moved}")
+        print(f"{name}: Q=32 batch ({route}) equals numpy reference row by "
+              f"row and plain torch; launches {moved}", flush=True)
+        out[name] = (g, dg, route)
+    return out
+
+
+def phase_batch_timing(batch: dict, card: str):
+    """Phase 3 (batch timing): the batched parts call at Q = 1, 8, 16,
+    32, kernels against plain: CUDA-event wall and profiler busy time."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.ops import depth as depth_op
+
+    rng = np.random.default_rng(2)
+    for name, (g, dg, route) in batch.items():
+        parts = (
+            depth_op.seg_depth_with_uniq_ell_batch_parts
+            if route == "ell"
+            else depth_op.seg_depth_with_uniq_cross_batch
+        )
+        masks = torch.from_numpy(batch_masks(g.num_paths, rng)).cuda()
+        for q in TIMING_QS:
+            wall, busy = [], []
+            for plain in (False, True):
+                fn = functools.partial(parts, dg, masks[:q], plain=plain)
+                wall.append(cuda_ms(fn) * 1e3)
+                busy.append(sum(device_profile(fn, reps=5).values()))
+            (wk, wp), (bk, bp) = wall, busy
+            idle = f"{1 - bk / wk:.3f}" if bk else "not measured"
+            print(f"batch {name} Q={q} [{card}]: kernels wall {wk:.2f} us "
+                  f"({wk / q:.2f} us/query, "
+                  f"{q * g.num_steps / (wk * 1e-6) / 1e9:.2f} G steps/s), "
+                  f"busy {bk:.2f} us, idle share {idle}; plain wall "
+                  f"{wp:.2f} us ({wp / q:.2f} us/query), busy {bp:.2f} us",
+                  flush=True)
+
+
+def phase_timing(graphs: dict, batch: dict, card: str) -> dict:
     """Phase 3 (timing): one query and each kernel, kernel vs plain."""
     import numpy as np
     import torch
@@ -395,7 +669,7 @@ def phase_timing(graphs: dict, card: str) -> dict:
     from pollen_tpu_torch.ops import depth as depth_op
 
     rng = np.random.default_rng(1)
-    for name, (g, dg) in graphs.items():
+    for name, (g, dg, _) in graphs.items():
         m = torch.from_numpy(rng.random(g.num_paths) < 0.5).cuda()
         k_ms = cuda_ms(lambda: depth_op.seg_depth_with_uniq_ell_parts(dg, m))
         p_ms = cuda_ms(
@@ -416,7 +690,7 @@ def phase_timing(graphs: dict, card: str) -> dict:
               f"sits in the {L2_BYTES // 2**20} MB L2", flush=True)
 
     times = {}
-    _, dg = graphs["bench"]
+    _, dg, _ = graphs["bench"]
     m = torch.from_numpy(rng.random(dg.num_paths) < 0.5).cuda()
     tiers = [t for t in (dg.cross_ell, dg.cross_ell2, dg.cross_ell3) if t.numel()]
     ks = [k for k in (dg.ell_k, dg.ell_k2, dg.ell_k3) if k]
@@ -427,7 +701,7 @@ def phase_timing(graphs: dict, card: str) -> dict:
         lambda: ell.masked_ell_splitn_depth_plain(*args, pack16=p16),
         "bench",
     )
-    _, dgu = graphs["unfused"]
+    _, dgu, _ = graphs["unfused"]
     mu = torch.from_numpy(rng.random(dgu.num_paths) < 0.5).cuda()
     mpu = torch.zeros(dgu.ell_heavy.shape[0] * 2, dtype=torch.int32,
                       device="cuda")
@@ -445,11 +719,32 @@ def phase_timing(graphs: dict, card: str) -> dict:
         ),
         "unfused tier 1",
     )
+    m32 = torch.from_numpy(batch_masks(dg.num_paths, rng)).cuda()
+    times["ell_splitn_batch (K4)"] = (
+        lambda: ell.masked_ell_splitn_depth_batch(
+            tiers, dg.ell_heavy, m32, ks, pack16=p16
+        ),
+        lambda: ell.masked_ell_splitn_depth_batch_plain(
+            tiers, dg.ell_heavy, m32, ks, pack16=p16
+        ),
+        "bench, Q=32",
+    )
+    dgc = batch["bench_cross"][1]
+    nib = dgc.cross_nibble
+    mpc = cm.pad_mask(m32, dgc.cross_matrix.shape[0] * (2 if nib else 1))
+    times["cross_batch (K5)"] = (
+        lambda: cm.batched_cross_depth(dgc.cross_matrix, m32, nibble=nib),
+        lambda: cm.batched_cross_depth_plain(
+            dgc.cross_matrix, mpc, nibble=nib
+        ),
+        f"bench crossing matrix {tuple(dgc.cross_matrix.shape)}, Q=32",
+    )
     out = {}
     for name, (kern, plain, where) in times.items():
         got, want = kern(), plain()
         for a, b in zip(got if isinstance(got, tuple) else [got], want):
-            need(torch.equal(a, b), f"{name} at {where}: kernel != plain")
+            need((a is None and b is None) or torch.equal(a, b),
+                 f"{name} at {where}: kernel != plain")
         out[name] = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
                      cuda_ms(plain), where)
         print(f"{name} at {where}: kernel call, "
@@ -478,27 +773,48 @@ def main() -> int:
     from pollen_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
+
+    def stamp(what):
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
+
     _build.load()
-    print(f"built {_build.library_path().name} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stamp(f"built {_build.library_path().name}")
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
 
     errs = Errors()
     phase_kernels(errs)
-    reset_launches()
-    phase_goldens()
+    stamp("phase 1 done")
     graphs: dict = {}
-    phase_scale(graphs)
-    launches = launch_counts()
-    print(f"main-path launches: {launches}", flush=True)
-    for name, (_, key) in KERNELS.items():
-        need(launches[key] > 0, f"{name} was never launched by the main path")
+    with tempfile.TemporaryDirectory() as tmp:
+        # Each main path runs with the counts set to 0 just before it
+        # and read just after: the single query, then the batch.
+        reset_launches()
+        phase_goldens(pathlib.Path(tmp))
+        phase_scale(graphs)
+        single = launch_counts()
+        stamp("single-query main path done")
+        reset_launches()
+        phase_goldens_batch(pathlib.Path(tmp))
+        batch = phase_scale_batch(graphs)
+        batched = launch_counts()
+        stamp("batch main path done")
+    print(f"main-path launches: single query {single}; batch {batched}",
+          flush=True)
+    launches = {}
+    for names, counts in ((SINGLE_PATH, single), (BATCH_PATH, batched)):
+        for name in names:
+            launches[name] = counts[KERNELS[name][2]]
+            need(launches[name] > 0,
+                 f"{name} was never launched by its main path")
 
-    timing = phase_timing(graphs, card)
+    timing = phase_timing(graphs, batch, card)
+    stamp("single-query and kernel timing done")
+    phase_batch_timing(batch, card)
+    stamp("batch timing done")
     rows = []
-    for name, (replaces, key) in KERNELS.items():
+    for name, (src, replaces, _) in KERNELS.items():
         p1, k1, k2, p2, where = timing[name]
         ms, plain_ms = min(k1, k2), min(p1, p2)
         print(f"{name} at {where} [{card}]: kernel {ms * 1e3:.2f} us, "
@@ -506,8 +822,8 @@ def main() -> int:
               f"plain: {p1 * 1e3:.2f} {k1 * 1e3:.2f} {k2 * 1e3:.2f} "
               f"{p2 * 1e3:.2f} us)", flush=True)
         rows.append(dict(
-            name=name, route="cuda", source=SRC, replaces=replaces,
-            launches=launches[key], max_abs_err=errs.max[name],
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=errs.max[name],
             ms=ms, plain_ms=plain_ms,
         ))
     print(card)

@@ -3,10 +3,11 @@
 Requests parse with the reference CLI's own parser
 (``pollen_tpu.cli.build_parser``), so every command line means what it
 means to ``fgfa-tpu``. Served so far: ``depth`` (path depth, ``-r``),
-``depth -d``, ``depth -d -s FILE`` and ``serve``, which answers depth
-requests over one resident graph with the reference's framing
-(``##end\\tok`` or ``##end\\terror\\t<message>`` after each response).
-Every other command exits with "not ported yet".
+``depth -d``, ``depth -d -s FILE``, ``depth -S FILE`` (one subset per
+line, all answered in one batched device pass) and ``serve``, which
+answers depth requests over one resident graph with the reference's
+framing (``##end\\tok`` or ``##end\\terror\\t<message>`` after each
+response). Every other command exits with "not ported yet".
 
 ``--device cuda|cpu`` (default ``cuda``) picks where the index lives and
 the queries run. A ``cuda`` run without a card is an error.
@@ -44,11 +45,16 @@ def _not_ported(what: str) -> ValueError:
 
 
 def _run_depth(args, g, dg, out: TextIO) -> None:
+    # The reference's order: -b, then -S (with or without -d), then -d.
     if args.bed_input:
         raise _not_ported("depth -b")
     if args.subset_batch:
-        raise _not_ported("depth -S")
-    if args.seg_depth:
+        subsets = [
+            [p for p in line.replace(",", " ").split() if p]
+            for line in _read_lines(args.subset_batch)
+        ]
+        out.write(depth_op.run_seg_depth_batch(g, dg, subsets))
+    elif args.seg_depth:
         subset = _read_lines(args.subset_paths) if args.subset_paths else None
         out.write(depth_op.run_seg_depth(g, dg, subset))
     else:

@@ -42,44 +42,9 @@
 //     [0, tier blocks) run the tier phases, the blocks after them the
 //     heavy phase, all in flight together on the 132 SMs.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int TALL_W = 4096;   // tall-layout width (ellscan.py TALL_W)
-constexpr int THREADS = 256;   // threads per block, every kernel
-constexpr int COL_BLOCKS = TALL_W / THREADS;  // tier blocks per tall row
-constexpr int H_COLS = 128;    // heavy columns per block (32 lanes x 4)
-constexpr int H_GROUPS = THREADS / 32;  // heavy row groups per block
-constexpr int MAX_SMEM_WORDS = 2048;    // 2^16 paths of mask bits
-
-struct Tier {
-  const int* slots;  // int32[g*k*sub, TALL_W] tall slots
-  int k;             // stored words per column
-  int g;             // tall row groups
-  int* depth;        // int32[g*sub*TALL_W]
-  int* uniq;         // int32[g*sub*TALL_W]
-};
-
-// Stage the mask words in shared memory; beyond 2^16 paths they stay in
-// global memory (read through L1). Returns the pointer to read from.
-__device__ __forceinline__ const int* stage_words(
-    int* s_words, const int* words, int n_words) {
-  if (n_words > MAX_SMEM_WORDS) return words;
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) {
-    s_words[i] = words[i];
-  }
-  __syncthreads();
-  return s_words;
-}
-
-__device__ __forceinline__ int mask_bit(
-    const int* words, int n_words, unsigned pid) {
-  unsigned w = pid >> 5;
-  if (w >= (unsigned)n_words) return 0;
-  return (int)(((unsigned)words[w] >> (pid & 31u)) & 1u);
-}
 
 // One tier: block `blk` of the tier's g*sub*COL_BLOCKS blocks.
 __device__ __forceinline__ void tier_column(
@@ -168,34 +133,10 @@ __device__ __forceinline__ void heavy_columns(
   }
 }
 
-// The 0/1 path mask (one byte or one int32 per path) -> bit words, one
-// ballot per warp. Launched ahead of each kernel on the same stream, so
-// a query hands the raw mask over and packs it in one launch.
-__global__ void __launch_bounds__(THREADS) pack_mask_kernel(
-    const void* mask, int elem_bytes, int n_paths, int* words,
-    int n_words) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  int bit = 0;
-  if (i < n_paths) {
-    bit = elem_bytes == 4 ? static_cast<const int*>(mask)[i] != 0
-                          : static_cast<const uint8_t*>(mask)[i] != 0;
-  }
-  const unsigned w = __ballot_sync(0xFFFFFFFFu, bit);
-  if ((threadIdx.x & 31) == 0 && (i >> 5) < n_words) words[i >> 5] = (int)w;
-}
-
-// Packs the mask into `words` (n_words = max(ceil(n_paths / 32), 1)).
-void pack_mask(const void* mask, int elem_bytes, int n_paths, int* words,
-               int n_words, cudaStream_t stream) {
-  const int blocks = (n_words * 32 + THREADS - 1) / THREADS;
-  pack_mask_kernel<<<blocks, THREADS, 0, stream>>>(mask, elem_bytes,
-                                                   n_paths, words, n_words);
-}
-
 __global__ void __launch_bounds__(THREADS) ell_tier_kernel(
     Tier t, int sub, int pack16, const int* words, int n_words) {
   __shared__ int s_words[MAX_SMEM_WORDS];
-  const int* w = stage_words(s_words, words, n_words);
+  const int* w = stage_words(s_words, words, n_words, MAX_SMEM_WORDS);
   tier_column(t, sub, pack16, w, n_words, blockIdx.x);
 }
 
@@ -205,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) cross_kernel(
   __shared__ int s_words[MAX_SMEM_WORDS];
   __shared__ int s_d[H_GROUPS][H_COLS];
   __shared__ int s_u[H_GROUPS][H_COLS];
-  const int* w = stage_words(s_words, words, n_words);
+  const int* w = stage_words(s_words, words, n_words, MAX_SMEM_WORDS);
   heavy_columns(a, rows, n_pad, nibble, w, n_words, blockIdx.x, depth,
                 uniq, s_d, s_u);
 }
@@ -217,7 +158,7 @@ __global__ void __launch_bounds__(THREADS) ell_splitn_kernel(
   __shared__ int s_words[MAX_SMEM_WORDS];
   __shared__ int s_d[H_GROUPS][H_COLS];
   __shared__ int s_u[H_GROUPS][H_COLS];
-  const int* w = stage_words(s_words, words, n_words);
+  const int* w = stage_words(s_words, words, n_words, MAX_SMEM_WORDS);
   long long b = blockIdx.x;  // block-uniform: no divergent phase picks
   const Tier* tiers[3] = {&t0, &t1, &t2};
   for (int i = 0; i < nt; ++i) {
@@ -245,7 +186,7 @@ int pollen_ell_tier(const void* slots, int k, int g, int sub, int pack16,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, w, n_words, st);
+  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
   Tier t{static_cast<const int*>(slots), k, g, static_cast<int*>(depth),
          static_cast<int*>(uniq)};
   const long long blocks = (long long)g * sub * COL_BLOCKS;
@@ -262,7 +203,7 @@ int pollen_cross_depth(const void* a, int rows, int n_pad, int nibble,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, w, n_words, st);
+  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
   const long long blocks = n_pad / H_COLS;
   if (blocks > 0) {
     cross_kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
@@ -282,7 +223,7 @@ int pollen_ell_splitn(int nt,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, w, n_words, st);
+  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
   Tier t[3] = {
       {static_cast<const int*>(s0), k0, g0, static_cast<int*>(d0),
        static_cast<int*>(u0)},

@@ -5,10 +5,12 @@ The kernels are compiled at first use with ``nvcc`` for Hopper
 with ``ctypes``. Nothing is compiled at import time: the CPU tests
 import every module of the package on machines with no ``nvcc``.
 
-The library's file name carries a hash of the sources and flags, so an
-edited kernel never loads a stale build; a build writes to a temporary
-name and renames it into place, so two processes building at once
-cannot load a half-written file.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one library. Its file name
+carries a hash of the sources, headers and flags, so an edited kernel
+never loads a stale build; a build writes to a temporary name and
+renames it into place, so two processes building at once cannot load a
+half-written file.
 
 Every C entry point returns ``cudaGetLastError()`` right after its
 launch; :func:`check` turns a nonzero code into an exception (a refused
@@ -33,7 +35,6 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -42,7 +43,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/depth.cu's entry points (pointers and the stream
+# C signatures of the csrc/*.cu entry points (pointers and the stream
 # as c_void_p: a bare Python int would be passed as a 32-bit int).
 _MASK = (_P, _I, _I, _P, _I)  # mask, elem_bytes, n_paths, words, n_words
 SIGNATURES = {
@@ -56,6 +57,22 @@ SIGNATURES = {
         _P, _I, _I, _P, _P,  # heavy: bytes, rows, nh_pad, depth, uniq
         _I, _I,  # sub, pack16
         *_MASK,
+        _P,  # stream
+    ),
+    # depth_batch.cu: masks are (q, n_paths), words q*n_words
+    "pollen_cross_depth_batch": (
+        _P, _I, _I, _I,  # matrix, rows, n_pad, nibble
+        _P, _I, _I, _I, _P, _I,  # masks, elem_bytes, n_paths, q, words, n_words
+        _P, _P, _P,  # depth, uniq, stream
+    ),
+    "pollen_ell_splitn_batch": (
+        _I,  # number of tiers
+        _P, _I, _I, _P, _P,  # tier 0: slots, k, g, depth, uniq
+        _P, _I, _I, _P, _P,  # tier 1
+        _P, _I, _I, _P, _P,  # tier 2
+        _P, _I, _I, _P, _P,  # heavy: bytes, rows, nh_pad, depth, uniq
+        _I, _I,  # sub, pack16
+        _P, _I, _I, _I, _P, _I,  # masks, elem_bytes, n_paths, q, words, n_words
         _P,  # stream
     ),
 }
@@ -83,10 +100,46 @@ def _sources() -> list[pathlib.Path]:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpollen_depth-{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: pathlib.Path) -> str:
+    """One nvcc per source, all at once, then one link into ``out``.
+    Returns the compilers' output; raises if a step fails."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = pathlib.Path(tmp) / f"{src.stem}.o"
+            objs.append(obj)
+            procs.append(
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT,
+                    text=True,
+                )
+            )
+        logs, failed = [], []
+        for src, proc in zip(_sources(), procs):
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (exit {proc.returncode})")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(out), *map(str, objs)],
+            capture_output=True,
+            text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{log}")
+    return log
 
 
 def load() -> ctypes.CDLL:
@@ -99,14 +152,11 @@ def load() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            build_log = _compile(pathlib.Path(tmp))
+        except BaseException:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{build_log}"
-            )
+            raise
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():

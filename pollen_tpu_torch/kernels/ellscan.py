@@ -11,7 +11,8 @@ the tall layout ``tall[(g*K + k)*SUB + r, c]``. The masked query is
 Host half: a jax-free port of pollen_tpu/kernels/ellscan.py's planner
 and packers (same constants, same layouts), so the port builds the
 resident index the reference builds. Device half: the wrappers of the
-CUDA kernels in ``csrc/depth.cu`` beside their plain PyTorch versions.
+CUDA kernels in ``csrc/depth.cu`` (one mask) and ``csrc/depth_batch.cu``
+(Q masks in one launch) beside their plain PyTorch versions.
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.
 """
@@ -45,7 +46,7 @@ SUB = int(os.environ.get("POLLEN_ELL_SUB", "8"))
 TALL_W = 4096
 
 # Launch counts of the CUDA kernels (plain-version calls do not count).
-launches = {"ell_tier": 0, "ell_splitn": 0}
+launches = {"ell_tier": 0, "ell_splitn": 0, "ell_splitn_batch": 0}
 
 
 def c_slot_a(n_words: int = 4) -> float:
@@ -190,16 +191,24 @@ def unfold_ell_tall(tall: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def pack_mask_words(mask: torch.Tensor, n_words: int) -> torch.Tensor:
-    """0/1 path mask -> int32[n_words] bit words (path p -> bit p%32 of
-    word p//32), on the mask's device."""
-    m = torch.zeros(n_words * 32, dtype=torch.int64, device=mask.device)
-    m[: mask.shape[0]] = mask.to(torch.int64)
-    shifted = m.reshape(n_words, 32) << torch.arange(
+    """0/1 path masks (paths on the last axis) -> int32[..., n_words] bit
+    words (path p -> bit p%32 of word p//32), on the mask's device."""
+    lead = mask.shape[:-1]
+    m = torch.zeros((*lead, n_words * 32), dtype=torch.int64,
+                    device=mask.device)
+    m[..., : mask.shape[-1]] = mask.to(torch.int64)
+    shifted = m.reshape(*lead, n_words, 32) << torch.arange(
         32, dtype=torch.int64, device=mask.device
     )
-    words = shifted.sum(dim=1)
+    words = shifted.sum(dim=-1)
     # Bit 31 set: wrap into int32's range (the kernel reads raw bits).
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def pack_mask_words_batch(masks: torch.Tensor) -> torch.Tensor:
+    """int32[Q, ceil(P/32)] bit words of a (Q, P) batch: the plain twin
+    of the packing launch ahead of the batched kernels."""
+    return pack_mask_words(masks, -(-masks.shape[1] // 32))
 
 
 def check_ell_sub(ell_sub: int) -> None:
@@ -255,7 +264,50 @@ def masked_ell_splitn_depth_plain(tiers, heavy, mask, ks, pack16=False):
     return tuple(outs)
 
 
+def masked_ell_splitn_depth_batch_plain(
+    tiers, heavy, masks, ks, pack16=False
+):
+    """Plain version of :func:`masked_ell_splitn_depth_batch`: each tier
+    unfolded once, then the single-query slot reduction per mask (no
+    (Q, K, N) gather); the heavy block by the batched plain product."""
+    from .crossmat import batched_cross_depth_plain, pad_mask
+
+    outs = []
+    for t, k in zip(tiers, ks):
+        flat = unfold_ell_tall(t, k)
+        if pack16:
+            flat = unpair_ell16(flat)
+        per_query = [masked_ell_depth_plain(flat, m) for m in masks]
+        outs += [torch.stack([d for d, _ in per_query]),
+                 torch.stack([u for _, u in per_query])]
+    if heavy.numel():
+        mp = pad_mask(masks, heavy.shape[0] * 2)
+        outs += list(batched_cross_depth_plain(heavy, mp, nibble=True))
+    else:
+        outs += [None, None]
+    return tuple(outs)
+
+
 # --- kernel wrappers ----------------------------------------------------
+
+
+def _check_splitn(tiers, heavy, ks):
+    """Refuse a split index the fused kernels do not read; returns the
+    tiers' row groups, whether the heavy class is present, the device."""
+    if not 1 <= len(tiers) <= 3 or len(tiers) != len(ks):
+        raise ValueError(f"need 1-3 tiers with one k each, got {len(ks)}")
+    gs = [_check_tall(t, k) for t, k in zip(tiers, ks)]
+    has_heavy = heavy.numel() > 0
+    if has_heavy:
+        from .crossmat import check_cross
+
+        check_cross(heavy, nibble=True)
+    device = tiers[0].device
+    if any(t.device != device for t in tiers) or (
+        has_heavy and heavy.device != device
+    ):
+        raise ValueError("tiers and heavy block must share one device")
+    return gs, has_heavy, device
 
 
 def _check_tall(tall: torch.Tensor, k: int) -> int:
@@ -270,19 +322,31 @@ def _check_tall(tall: torch.Tensor, k: int) -> int:
     return tall.shape[0] // (k * SUB)
 
 
+def kernel_masks(masks: torch.Tensor, device) -> tuple:
+    """The ``(masks, elem_bytes, n_paths, n_words)`` mask arguments of a
+    kernel entry point for (Q, P) masks: the raw 0/1 masks (1 byte or
+    int32 per path) are packed into Q rows of bit words on the card,
+    ahead of the kernel (one grid row per mask: Q <= 65535)."""
+    if masks.device != device:
+        raise ValueError(f"mask on {masks.device}, index on {device}")
+    if masks.dim() != 2 or not 1 <= masks.shape[0] <= 65535:
+        raise ValueError(
+            f"masks must be (Q, P) with 1 <= Q <= 65535, got "
+            f"{tuple(masks.shape)}"
+        )
+    if masks.dtype not in (torch.bool, torch.uint8, torch.int8, torch.int32):
+        masks = masks.to(torch.int32)
+    masks = masks.contiguous()
+    n_words = max(-(-masks.shape[1] // 32), 1)
+    return masks, masks.element_size(), masks.shape[1], n_words
+
+
 def kernel_mask(mask: torch.Tensor, device) -> tuple:
-    """The ``(pointer, elem_bytes, n_paths, n_words)`` mask arguments of
-    a kernel entry point: the raw 0/1 mask (1 byte or int32 per path) is
-    packed into bit words on the card, ahead of the kernel."""
-    if mask.device != device:
-        raise ValueError(f"mask on {mask.device}, index on {device}")
+    """:func:`kernel_masks` for one 1-D mask."""
     if mask.dim() != 1:
         raise ValueError(f"mask must be 1-D, got shape {tuple(mask.shape)}")
-    if mask.dtype not in (torch.bool, torch.uint8, torch.int8, torch.int32):
-        mask = mask.to(torch.int32)
-    mask = mask.contiguous()
-    n_words = max(-(-mask.shape[0] // 32), 1)
-    return mask, mask.element_size(), mask.shape[0], n_words
+    masks, elem, n_paths, n_words = kernel_masks(mask[None], device)
+    return masks[0], elem, n_paths, n_words
 
 
 def alloc_outputs(sizes, n_words: int, device):
@@ -338,27 +402,7 @@ def masked_ell_splitn_depth(
     Returns ``(d_i, u_i)`` per tier, then ``(dh, uh)`` when the heavy
     class is present, each int32 in natural column order.
     CUDA: csrc/depth.cu pollen_ell_splitn."""
-    if not 1 <= len(tiers) <= 3 or len(tiers) != len(ks):
-        raise ValueError(f"need 1-3 tiers with one k each, got {len(ks)}")
-    gs = [_check_tall(t, k) for t, k in zip(tiers, ks)]
-    has_heavy = heavy.numel() > 0
-    if has_heavy:
-        if heavy.dtype != torch.uint8 or heavy.dim() != 2:
-            raise TypeError("heavy block must be 2-D uint8 (nibble packed)")
-        if (
-            heavy.shape[1] % LANES
-            or not heavy.is_contiguous()
-            or heavy.data_ptr() % 4
-        ):
-            raise ValueError(
-                f"heavy block {tuple(heavy.shape)} must be contiguous and "
-                f"4-byte aligned, with a multiple of {LANES} columns"
-            )
-    device = tiers[0].device
-    if any(t.device != device for t in tiers) or (
-        has_heavy and heavy.device != device
-    ):
-        raise ValueError("tiers and heavy block must share one device")
+    gs, has_heavy, device = _check_splitn(tiers, heavy, ks)
     if device.type == "cpu":
         return masked_ell_splitn_depth_plain(tiers, heavy, mask, ks, pack16)
     if device.type != "cuda":
@@ -389,3 +433,56 @@ def masked_ell_splitn_depth(
     )
     launches["ell_splitn"] += 1
     return tuple(outs)
+
+
+def masked_ell_splitn_depth_batch(
+    tiers: Sequence[torch.Tensor],
+    heavy: torch.Tensor,
+    masks: torch.Tensor,
+    ks: Sequence[int],
+    pack16: bool = False,
+):
+    """The batched split query: (Q, P) masks over up to three tall tiers
+    plus the nibble heavy block in one launch, whatever the tier count
+    (the reference splits three-tier batches into one call per tier
+    only for Mosaic's VMEM ceiling). Returns ``(d_i, u_i)`` per tier,
+    then ``(dh, uh)`` (None, None when the heavy class is absent), each
+    int32 (Q, columns) in natural column order.
+    CUDA: csrc/depth_batch.cu pollen_ell_splitn_batch."""
+    gs, has_heavy, device = _check_splitn(tiers, heavy, ks)
+    if masks.dim() != 2 or masks.shape[0] == 0:
+        raise ValueError(f"need (Q >= 1, P) masks, got {tuple(masks.shape)}")
+    if device.type == "cpu":
+        return masked_ell_splitn_depth_batch_plain(
+            tiers, heavy, masks, ks, pack16
+        )
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    masks, elem, n_paths, n_words = kernel_masks(masks, device)
+    q = masks.shape[0]
+    cols = [c for g in gs for c in (g * SUB * TALL_W,) * 2]
+    if has_heavy:
+        cols += [heavy.shape[1]] * 2
+    *outs, words = alloc_outputs([q * c for c in cols], q * n_words, device)
+    args = []
+    for i, (t, k, g) in enumerate(zip(tiers, ks, gs)):
+        d, u = outs[2 * i], outs[2 * i + 1]
+        args += [t.data_ptr(), k, g, d.data_ptr(), u.data_ptr()]
+    args += [None, 0, 0, None, None] * (3 - len(tiers))
+    if has_heavy:
+        h_rows, nh_pad = heavy.shape
+        dh, uh = outs[-2], outs[-1]
+        args += [heavy.data_ptr(), h_rows, nh_pad, dh.data_ptr(), uh.data_ptr()]
+    else:
+        args += [None, 0, 0, None, None]
+    lib = _build.load()
+    _build.check(
+        "pollen_ell_splitn_batch",
+        lib.pollen_ell_splitn_batch(
+            len(tiers), *args, SUB, int(pack16), masks.data_ptr(), elem,
+            n_paths, q, words.data_ptr(), n_words, _stream(device),
+        ),
+    )
+    launches["ell_splitn_batch"] += 1
+    outs = [o.view(q, c) for o, c in zip(outs, cols)]
+    return tuple(outs) if has_heavy else (*outs, None, None)

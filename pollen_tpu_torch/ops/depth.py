@@ -1,7 +1,8 @@
 """Depth queries: per-segment crossing counts and per-path mean depth.
 
-A port of pollen_tpu/ops/depth.py's single-query path (odgi ``depth -d``
-and ``depth -d -s``): the router picks the cheapest resident index with
+A port of pollen_tpu/ops/depth.py's single and batched masked queries
+(odgi ``depth -d``, ``depth -d -s``, and ``depth -S``, many subsets in
+one device pass): the router picks the cheapest resident index with
 the reference's cost model, and the tiered split ELL ("ell") and
 crossing-matrix ("cross") routes run the CUDA kernels on a CUDA graph.
 A CPU graph follows the reference's CPU dispatch with plain versions.
@@ -86,6 +87,13 @@ def _residual(res: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
     return (res * mp[:, None]).sum(dim=0, dtype=torch.int32)
 
 
+def _residual_batch(res: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
+    """:func:`_residual` for (Q, P_pad) masks -> int32 (Q, K). Exact:
+    float64 products and sums of integers far below 2^53 (torch.matmul
+    has no int32 CUDA form)."""
+    return (mp.to(torch.float64) @ res.to(torch.float64)).to(torch.int32)
+
+
 def seg_depth_with_uniq_cross(
     dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -168,37 +176,138 @@ def seg_depth_with_uniq_ell_parts(
     return d1, u1, d2, u2, dh, uh
 
 
+def _compose_ell(dg: TorchGraph, parts) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-class ``(d1, u1, d2, u2, dh, uh)`` parts of shape (Q, class
+    columns) -> host int32 (depth, uniq) of shape (Q, N) in natural
+    segment order: composed and un-permuted by ``ell_order`` on the host,
+    as the reference does."""
+    d1, u1, d2, u2, dh, uh = (
+        None if x is None else x.cpu().numpy() for x in parts
+    )
+    n = dg.num_segments
+    if d2 is None and dh is None and not dg.ell_order.shape[0]:
+        return d1[:, :n], u1[:, :n]
+    nl, nh = dg.ell_num_light, dg.ell_num_heavy
+    nm = dg.ell_num_mid + dg.ell_num_mid2
+    ne = n - nl - nm - nh
+    dparts, uparts = [d1[:, :nl]], [u1[:, :nl]]
+    if d2 is not None:
+        dparts.append(d2[:, :nm])
+        uparts.append(u2[:, :nm])
+    if dh is not None:
+        dparts.append(dh[:, :nh])
+        uparts.append(uh[:, :nh])
+    empty = np.zeros((d1.shape[0], ne), np.int32)
+    d = np.concatenate(dparts + [empty], axis=1)
+    u = np.concatenate(uparts + [empty], axis=1)
+    if dg.ell_order.shape[0]:
+        inv = np.empty(n, np.int64)
+        inv[dg.ell_order.cpu().numpy()] = np.arange(n)
+        d, u = d[:, inv], u[:, inv]
+    return d, u
+
+
 def seg_depth_with_uniq_ell(
     dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked (depth, uniq) over the tiered split ELL index in natural
     segment order, composed and un-permuted on the host (CPU tensors)."""
-    d1, u1, d2, u2, dh, uh = seg_depth_with_uniq_ell_parts(
-        dg, path_mask, plain=plain
+    parts = seg_depth_with_uniq_ell_parts(dg, path_mask, plain=plain)
+    d, u = _compose_ell(dg, [None if x is None else x[None] for x in parts])
+    return torch.from_numpy(d[0]), torch.from_numpy(u[0])
+
+
+def seg_depth_with_uniq_ell_batch_parts(
+    dg: TorchGraph, path_masks: torch.Tensor, plain: bool = False
+):
+    """Batched masked (depth, uniq) over the tiered split ELL index as
+    per-class parts ``(d1, u1, d2, u2, dh, uh)`` of shape (Q, class
+    columns) on the graph's device, in one launch of the batched kernel
+    for any tier count; absent classes are None, a third tier is folded
+    into the mid pair (tier-2 columns first), and the heavy clip
+    residual is applied."""
+    _ell.check_ell_sub(dg.ell_sub)
+    m = path_masks.to(torch.int32)[:, : dg.num_paths]
+    tiers = [(dg.cross_ell, dg.ell_k)]
+    for tall, k in ((dg.cross_ell2, dg.ell_k2), (dg.cross_ell3, dg.ell_k3)):
+        if tall.numel():
+            tiers.append((tall, k))
+    fn = (
+        _ell.masked_ell_splitn_depth_batch_plain
+        if plain
+        else _ell.masked_ell_splitn_depth_batch
     )
-    n = dg.num_segments
-    if d2 is None and dh is None and not dg.ell_order.shape[0]:
-        return d1[:n].cpu(), u1[:n].cpu()
-    nl, nh = dg.ell_num_light, dg.ell_num_heavy
-    nm = dg.ell_num_mid + dg.ell_num_mid2
-    ne = n - nl - nm - nh
-    dparts = [d1.cpu().numpy()[:nl]]
-    uparts = [u1.cpu().numpy()[:nl]]
-    if d2 is not None:
-        dparts.append(d2.cpu().numpy()[:nm])
-        uparts.append(u2.cpu().numpy()[:nm])
-    if dh is not None:
-        dparts.append(dh.cpu().numpy()[:nh])
-        uparts.append(uh.cpu().numpy()[:nh])
-    dparts.append(np.zeros(ne, np.int32))
-    uparts.append(np.zeros(ne, np.int32))
-    d = np.concatenate(dparts)
-    u = np.concatenate(uparts)
-    if dg.ell_order.shape[0]:
-        inv = np.empty(n, np.int64)
-        inv[dg.ell_order.cpu().numpy()] = np.arange(n)
-        d, u = d[inv], u[inv]
-    return torch.from_numpy(d), torch.from_numpy(u)
+    *tier_outs, dh, uh = fn(
+        [t for t, _ in tiers], dg.ell_heavy, m, [k for _, k in tiers],
+        pack16=bool(dg.ell_pack16),
+    )
+    d1, u1 = tier_outs[0], tier_outs[1]
+    d2 = u2 = None
+    if dg.cross_ell2.numel():
+        d2, u2 = tier_outs[2], tier_outs[3]
+    if dg.cross_ell3.numel():
+        d3, u3 = tier_outs[-2], tier_outs[-1]
+        if d2 is None:
+            d2, u2 = d3, u3
+        else:
+            nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
+            d2 = torch.cat([d2[:, :nm], d3[:, :nm2]], dim=1)
+            u2 = torch.cat([u2[:, :nm], u3[:, :nm2]], dim=1)
+    if dh is not None and dg.ell_heavy_res_col.numel():
+        # Overflow columns occupy the heavy block's prefix (ingest);
+        # dh is this batch's own fresh output, so the add is in place.
+        mp = _cm.pad_mask(m, dg.ell_heavy.shape[0] * 2)
+        dh[:, : dg.ell_heavy_res.shape[1]] += _residual_batch(
+            dg.ell_heavy_res, mp
+        )
+    return d1, u1, d2, u2, dh, uh
+
+
+# Largest batch per launch, as in the reference (its VMEM budget): it
+# bounds the launch's (Q, columns) outputs, and tier plans made for
+# ell_objective="batch" assume this batch size (ELL_BATCH_Q).
+ELL_BATCH_CHUNK = _ell.ELL_BATCH_Q
+
+
+def seg_depth_with_uniq_ell_batch(
+    dg: TorchGraph, path_masks: torch.Tensor, plain: bool = False
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched tiered-ELL queries as host int32 (Q, N) arrays in natural
+    segment order, one launch per ELL_BATCH_CHUNK masks. The reference
+    also pads Q up to a power of two to bound Mosaic recompiles; a CUDA
+    launch compiles nothing per shape, so a ragged Q runs as it is."""
+    chunks = [
+        _compose_ell(
+            dg,
+            seg_depth_with_uniq_ell_batch_parts(
+                dg, path_masks[i : i + ELL_BATCH_CHUNK], plain=plain
+            ),
+        )
+        for i in range(0, path_masks.shape[0], ELL_BATCH_CHUNK)
+    ]
+    return (
+        np.concatenate([d for d, _ in chunks]),
+        np.concatenate([u for _, u in chunks]),
+    )
+
+
+def seg_depth_with_uniq_cross_batch(
+    dg: TorchGraph, path_masks: torch.Tensor, plain: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched masked (depth, uniq) over the dense crossing matrix plus
+    its residual sidecar: int32 (Q, N) on the graph's device."""
+    p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
+    m = _cm.pad_mask(path_masks[:, : dg.num_paths], p_pad)
+    fn = _cm.batched_cross_depth_plain if plain else _cm.batched_cross_depth
+    depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
+    if dg.cross_res_seg.numel():
+        fix = _residual_batch(dg.cross_res, m)
+        # Sentinel padding columns carry an out-of-range segment id:
+        # route them to column 0 with a zero contribution.
+        valid = dg.cross_res_seg < depth.shape[1]
+        idx = torch.where(valid, dg.cross_res_seg, 0).long()
+        depth = depth.index_add(1, idx, fix * valid.to(torch.int32))
+    return depth[:, : dg.num_segments], uniq[:, : dg.num_segments]
 
 
 # Router constants, unchanged from the reference (TPU fits,
@@ -274,6 +383,43 @@ def masked_seg_depth(
         depth, uniq = seg_depth_with_uniq_runs(dg, path_mask)
     else:
         depth, uniq = seg_depth_with_uniq_masked(dg, path_mask)
+    return depth.cpu().numpy(), uniq.cpu().numpy()
+
+
+def batch_route(dg: TorchGraph) -> str:
+    """The index a batch of masked queries runs on. Not the single
+    query's router: "ell" only when the tiered ELL index is the cheapest
+    index; otherwise the crossing matrix whenever one is resident (even
+    where a single query would take "runs" or "scan"); then "runs"."""
+    if dg.cross_ell.numel() and _best_masked_impl(dg) == "ell":
+        return "ell"
+    if dg.cross_matrix.numel():
+        return "cross"
+    return "runs"
+
+
+def seg_depth_with_uniq_batch(
+    dg: TorchGraph, path_masks: torch.Tensor
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Many masked queries at once: ``path_masks`` is (Q, P) 0/1;
+    returns host int32 (depth, uniq) of shape (Q, N), routed by
+    :func:`batch_route`. The serving shape: one resident graph, a
+    stream of subset queries."""
+    path_masks = path_masks.to(dg.device)
+    route = batch_route(dg)
+    on_cuda = dg.device.type == "cuda"
+    if route == "ell":
+        return seg_depth_with_uniq_ell_batch(dg, path_masks, plain=not on_cuda)
+    if route == "cross":
+        depth, uniq = seg_depth_with_uniq_cross_batch(
+            dg, path_masks, plain=not on_cuda
+        )
+    elif on_cuda:
+        raise NotImplementedError(_NOT_PORTED.format(route=route))
+    else:
+        pairs = [seg_depth_with_uniq_runs(dg, m) for m in path_masks]
+        depth = torch.stack([d for d, _ in pairs])
+        uniq = torch.stack([u for _, u in pairs])
     return depth.cpu().numpy(), uniq.cpu().numpy()
 
 
@@ -361,4 +507,21 @@ def run_path_depth(
         ids = [by_name[p.encode()] for p in paths if p.encode() in by_name]
     return path_depth_table(
         g, lengths.cpu().numpy(), sums.cpu().numpy(), ids
+    )
+
+
+def run_seg_depth_batch(
+    g: GraphArrays,
+    dg: TorchGraph,
+    subsets: Sequence[Sequence[str]],
+) -> str:
+    """Many subset-depth queries in one device pass (``depth -S``): one
+    TSV table per subset, each preceded by ``##query\t<i>``."""
+    if not subsets:
+        return ""
+    masks = np.stack([path_mask_for(g, s) for s in subsets])
+    depth, uniq = seg_depth_with_uniq_batch(dg, torch.from_numpy(masks))
+    return "".join(
+        f"##query\t{i}\n" + seg_depth_table(g, depth[i], uniq[i])
+        for i in range(len(subsets))
     )

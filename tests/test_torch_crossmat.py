@@ -91,6 +91,63 @@ def test_cross_wrapper_matches_pallas_interpret(nibble):
     assert np.array_equal(np.asarray(d_short), d_only.numpy())
 
 
+@pytest.mark.parametrize("nibble", [True, False])
+@pytest.mark.parametrize("p_pad", [128, 384])
+def test_batched_cross_depth_plain_matches_xla(nibble, p_pad):
+    rng = np.random.default_rng(p_pad + nibble + 10)
+    a = _matrix(rng, p_pad, 512, nibble)
+    masks = rng.integers(0, 2, (7, p_pad)).astype(np.int32)
+    d_r, u_r = ref.batched_cross_depth(
+        jnp.asarray(a), jnp.asarray(masks), nibble=nibble
+    )
+    d_p, u_p = port.batched_cross_depth_plain(
+        torch.from_numpy(a), torch.from_numpy(masks), nibble=nibble
+    )
+    assert d_p.dtype == torch.int32 and u_p.dtype == torch.int32
+    assert np.array_equal(np.asarray(d_r), d_p.numpy())
+    assert np.array_equal(np.asarray(u_r), u_p.numpy())
+
+
+@pytest.mark.parametrize("nibble", [True, False])
+@pytest.mark.parametrize("q", [1, 5, 16])
+def test_batched_cross_wrapper_matches_pallas_interpret(nibble, q):
+    """Both layouts, Q = 1, a ragged Q (the reference pads to 8) and
+    Q = 16; masks shorter than P_pad are zero-padded."""
+    rng = np.random.default_rng(20 + q + nibble)
+    p_pad = 128
+    a = _matrix(rng, p_pad, 1024, nibble)
+    masks = rng.integers(0, 2, (q, p_pad)).astype(np.int32)
+    masks[:, 100:] = 0
+    d_r, u_r = ref.batched_cross_depth_pallas(
+        jnp.asarray(a), jnp.asarray(masks), nibble=nibble, interpret=True
+    )
+    before = dict(port.launches)
+    d_p, u_p = port.batched_cross_depth(
+        torch.from_numpy(a), torch.from_numpy(masks[:, :100]), nibble=nibble
+    )
+    assert port.launches == before  # the CPU path launches no kernel
+    assert d_p.shape == (q, 1024) and d_p.dtype == torch.int32
+    assert np.array_equal(np.asarray(d_r), d_p.numpy())
+    assert np.array_equal(np.asarray(u_r), u_p.numpy())
+    for i in range(q):
+        d1, u1 = port.masked_cross_depth(
+            torch.from_numpy(a), torch.from_numpy(masks[i]), nibble=nibble
+        )
+        assert torch.equal(d_p[i], d1) and torch.equal(u_p[i], u1)
+
+
+def test_batched_cross_wrapper_checks_inputs():
+    a = torch.zeros((64, 256), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="Q >= 1"):
+        port.batched_cross_depth(a, torch.ones(128), nibble=True)
+    with pytest.raises(TypeError):
+        port.batched_cross_depth(a, torch.ones((2, 128)), nibble=False)
+    with pytest.raises(ValueError, match="no kernel"):
+        port.batched_cross_depth(
+            a.to("meta"), torch.ones((2, 128), device="meta"), nibble=True
+        )
+
+
 def test_cross_wrapper_checks_inputs():
     mask = torch.ones(128, dtype=torch.int32)
     a = torch.zeros((64, 256), dtype=torch.uint8)

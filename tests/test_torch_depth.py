@@ -252,7 +252,7 @@ def test_serve_answers_and_frames():
     frames = [ln for ln in text.splitlines() if ln.startswith("##end")]
     assert frames[:3] == ["##end\tok"] * 3
     assert frames[3].startswith("##end\terror\t") and "not ported" in frames[3]
-    assert frames[4].startswith("##end\terror\t") and "not ported" in frames[4]
+    assert frames[4].startswith("##end\terror\t") and "nowhere.txt" in frames[4]
     assert frames[5] == "##end\terror\tbad request"
     golden = (GOLDEN_DIR / "tiny.depth").read_text()
     assert text.startswith(golden + "##end\tok\n")

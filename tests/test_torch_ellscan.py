@@ -205,6 +205,111 @@ def test_ell_splitn_cpu_equals_per_tier(pack16):
         assert torch.equal(outs[2 * i], d) and torch.equal(outs[2 * i + 1], u)
 
 
+@pytest.mark.parametrize("n_paths", [1, 33, 300])
+def test_pack_mask_words_batch_matches_reference(n_paths):
+    rng = np.random.default_rng(n_paths)
+    masks = rng.integers(0, 2, (5, n_paths)).astype(np.int32)
+    masks[:, -1] = 1
+    w_r = np.asarray(ref.pack_mask_words_batch(jnp.asarray(masks)))
+    w_p = port.pack_mask_words_batch(torch.from_numpy(masks)).numpy()
+    assert w_p.dtype == np.int32 and np.array_equal(w_r, w_p)
+
+
+_T1 = ((2, 3000),)
+_T2 = ((1, 3000), (4, 700))
+_T3 = ((1, 900), (3, 400), (5, 50))
+
+
+@pytest.mark.parametrize(
+    "spec,heavy_rows,pack16,q,ref_fn",
+    [
+        (_T1, 64, True, 1, "fused"),
+        (_T1, 0, False, 16, "split"),
+        (_T2, 64, True, 16, "fused"),
+        (_T2, 64, False, 5, "split"),
+        (_T3, 0, True, 5, "fused"),
+        (_T3, 64, False, 16, "split"),
+    ],
+)
+def test_ell_splitn_batch_wrapper_matches_pallas_interpret(
+    spec, heavy_rows, pack16, q, ref_fn
+):
+    """The batched split wrapper's CPU path against the fused Pallas
+    batch kernel and its per-tier split emission (interpret mode): 1-3
+    tiers, with and without the heavy block, pack16 and 32-bit slots."""
+    rng = np.random.default_rng(len(spec) * 100 + q)
+    p = 120
+    tiers = [_tall_tier(rng, k, n, p, pack16) for k, n in spec]
+    heavy = rng.integers(0, 256, (heavy_rows, 256 if heavy_rows else 0))
+    heavy = heavy.astype(np.uint8)
+    masks = rng.integers(0, 2, (q, p)).astype(np.int32)
+    masks[0] = 1
+    fn = {
+        "fused": ref.masked_ell_splitn_depth_batch,
+        "split": ref.masked_ell_splitn_depth_batch_split,
+    }[ref_fn]
+    outs_r = fn(
+        tuple(jnp.asarray(t) for t, _ in tiers),
+        jnp.asarray(heavy),
+        jnp.asarray(masks),
+        ks=tuple(k for _, k in tiers),
+        interpret=True,
+        pack16=pack16,
+    )
+    before = dict(port.launches)
+    outs_p = port.masked_ell_splitn_depth_batch(
+        [torch.from_numpy(t) for t, _ in tiers],
+        torch.from_numpy(heavy),
+        torch.from_numpy(masks),
+        ks=[k for _, k in tiers],
+        pack16=pack16,
+    )
+    assert port.launches == before  # the CPU path launches no kernel
+    assert len(outs_p) == len(outs_r) == 2 * len(spec) + 2
+    assert (outs_p[-1] is None) == (heavy_rows == 0)
+    for a, b in zip(outs_r, outs_p):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert b.dtype == torch.int32 and b.shape[0] == q
+            assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def test_ell_splitn_batch_rows_equal_single_query():
+    """Each row of the batch equals the single-query wrapper's answer."""
+    rng = np.random.default_rng(14)
+    p = 300
+    tiers = [_tall_tier(rng, k, n, p, False) for k, n in _T2]
+    heavy = torch.from_numpy(
+        rng.integers(0, 256, (192, 384)).astype(np.uint8)
+    )
+    masks = torch.from_numpy(rng.random((3, p)) < 0.5)
+    args = [torch.from_numpy(t) for t, _ in tiers], heavy
+    ks = [k for _, k in tiers]
+    batch = port.masked_ell_splitn_depth_batch(*args, masks, ks)
+    for i, m in enumerate(masks):
+        single = port.masked_ell_splitn_depth(*args, m, ks)
+        for b, s in zip(batch, single):
+            assert torch.equal(b[i], s)
+
+
+def test_batch_wrapper_checks_inputs():
+    tall = torch.zeros((port.SUB, port.TALL_W), dtype=torch.int32)
+    empty = torch.zeros((0, 0), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="Q >= 1"):
+        port.masked_ell_splitn_depth_batch(
+            [tall], empty, torch.ones(8, dtype=torch.int32), ks=[1]
+        )
+    with pytest.raises(ValueError, match="Q >= 1"):
+        port.masked_ell_splitn_depth_batch(
+            [tall], empty, torch.ones((0, 8), dtype=torch.int32), ks=[1]
+        )
+    with pytest.raises(ValueError, match="no kernel"):
+        port.masked_ell_splitn_depth_batch(
+            [tall.to("meta")], empty.to("meta"),
+            torch.ones((2, 8), dtype=torch.int32, device="meta"), ks=[1],
+        )
+
+
 def test_wrappers_check_inputs():
     mask = torch.ones(8, dtype=torch.int32)
     tall = torch.zeros((port.SUB, port.TALL_W), dtype=torch.int32)
