@@ -75,4 +75,230 @@ void pack_mask(const void* mask, int elem_bytes, int n_paths, int rows,
                                                  words, n_words);
 }
 
+// ---------------------------------------------------------------------
+// Scan template (scan.cu): an inclusive scan of an associative, not
+// necessarily commutative, operator over n elements, each made from two
+// int32 inputs (x[i], y[i]) and its position, writing two int32 outputs
+// per element. Three launches, no spin-waits:
+//
+//   scan_reduce  one aggregate per block (blocks of `tpb` tiles);
+//   scan_totals  one block turns those into exclusive block prefixes;
+//   scan_down    each block rescans its tiles from its prefix and
+//                writes the outputs.
+//
+// A thread takes SCAN_ITEMS consecutive elements (16-byte loads and
+// stores where aligned), composes them in order, and a block-wide
+// exclusive scan (warp shuffles, then one warp over the warp totals)
+// orders the threads. An Op supplies:
+//   using Agg = <struct of ints>;
+//   static Agg identity();  static Agg combine(Agg a, Agg b);
+//   Agg element(long long i, int x, int y, const int* words) const;
+//   void emit(const Agg& prefix, int* o0, int* o1) const;  // inclusive
+// and the members x, y, out0, out1, n, words, n_words.
+// ---------------------------------------------------------------------
+
+constexpr int SCAN_ITEMS = 8;
+constexpr int SCAN_TILE = THREADS * SCAN_ITEMS;  // elements per tile
+constexpr int TOTALS_THREADS = 1024;
+constexpr int SCAN_SMEM_WORDS = 4096;  // 2^17 paths of mask bits (16 KB)
+
+template <class T>
+__device__ __forceinline__ T shfl_up_agg(const T& v, int d) {
+  static_assert(sizeof(T) % 4 == 0, "aggregates are structs of ints");
+  T out;
+  const int* p = reinterpret_cast<const int*>(&v);
+  int* q = reinterpret_cast<int*>(&out);
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(T) / 4); ++k) {
+    q[k] = __shfl_up_sync(0xFFFFFFFFu, p[k], d);
+  }
+  return out;
+}
+
+// Exclusive scan of one aggregate per thread, in thread order. `tot`
+// holds 33 aggregates; *total gets the block's. Every thread calls it.
+template <class Op, class T>
+__device__ T block_exclusive_scan(T v, T* tot, T* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  T incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T o = shfl_up_agg(incl, d);
+    if (lane >= d) incl = Op::combine(o, incl);
+  }
+  T excl = shfl_up_agg(incl, 1);
+  if (lane == 0) excl = Op::identity();
+  if (lane == 31) tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const T t = lane < n_warps ? tot[lane] : Op::identity();
+    T ti = t;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const T o = shfl_up_agg(ti, d);
+      if (lane >= d) ti = Op::combine(o, ti);
+    }
+    T te = shfl_up_agg(ti, 1);
+    if (lane == 0) te = Op::identity();
+    if (lane < n_warps) tot[lane] = te;
+    if (lane == 31) tot[32] = ti;
+  }
+  __syncthreads();
+  excl = Op::combine(tot[warp], excl);
+  *total = tot[32];
+  __syncthreads();  // `tot` may be reused by the next call
+  return excl;
+}
+
+// The thread's SCAN_ITEMS inputs of the tile at `base`.
+template <class Op>
+__device__ __forceinline__ void load_items(const Op& op, long long base,
+                                           int (&x)[SCAN_ITEMS],
+                                           int (&y)[SCAN_ITEMS]) {
+  const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+  const bool vec = i0 + SCAN_ITEMS <= op.n &&
+                   ((reinterpret_cast<uintptr_t>(op.x) |
+                     reinterpret_cast<uintptr_t>(op.y)) & 15u) == 0;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; j += 4) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(op.x + i0 + j));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(op.y + i0 + j));
+      x[j] = a.x; x[j + 1] = a.y; x[j + 2] = a.z; x[j + 3] = a.w;
+      y[j] = b.x; y[j + 1] = b.y; y[j + 2] = b.z; y[j + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      const bool in = i0 + j < op.n;
+      x[j] = in ? __ldg(op.x + i0 + j) : 0;
+      y[j] = in ? __ldg(op.y + i0 + j) : 0;
+    }
+  }
+}
+
+// The aggregate of the thread's items of the tile at `base`.
+template <class Op>
+__device__ __forceinline__ typename Op::Agg thread_aggregate(
+    const Op& op, long long base, const int (&x)[SCAN_ITEMS],
+    const int (&y)[SCAN_ITEMS], const int* words) {
+  const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+  typename Op::Agg acc = Op::identity();
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    if (i0 + j < op.n) acc = Op::combine(acc, op.element(i0 + j, x[j], y[j],
+                                                          words));
+  }
+  return acc;
+}
+
+template <class Op>
+__global__ void __launch_bounds__(THREADS) scan_reduce(
+    Op op, int tpb, typename Op::Agg* block_aggs) {
+  using Agg = typename Op::Agg;
+  __shared__ int s_words[SCAN_SMEM_WORDS];
+  __shared__ Agg s_tot[33];
+  const int* w = stage_words(s_words, op.words, op.n_words, SCAN_SMEM_WORDS);
+  Agg carry = Op::identity();
+  for (int k = 0; k < tpb; ++k) {
+    const long long base = ((long long)blockIdx.x * tpb + k) * SCAN_TILE;
+    if (base >= op.n) break;  // block-uniform
+    int x[SCAN_ITEMS], y[SCAN_ITEMS];
+    load_items(op, base, x, y);
+    Agg total;
+    block_exclusive_scan<Op>(thread_aggregate(op, base, x, y, w), s_tot,
+                             &total);
+    carry = Op::combine(carry, total);
+  }
+  if (threadIdx.x == 0) block_aggs[blockIdx.x] = carry;
+}
+
+// One block: block aggregates -> exclusive block prefixes, in place.
+template <class Op>
+__global__ void __launch_bounds__(TOTALS_THREADS) scan_totals(
+    typename Op::Agg* block_aggs, int nb) {
+  using Agg = typename Op::Agg;
+  __shared__ Agg s_tot[33];
+  const int per = (nb + TOTALS_THREADS - 1) / TOTALS_THREADS;
+  const int lo = min(nb, (int)threadIdx.x * per);
+  const int hi = min(nb, lo + per);
+  Agg acc = Op::identity();
+  for (int b = lo; b < hi; ++b) acc = Op::combine(acc, block_aggs[b]);
+  Agg total;
+  Agg run = block_exclusive_scan<Op>(acc, s_tot, &total);
+  for (int b = lo; b < hi; ++b) {
+    const Agg a = block_aggs[b];
+    block_aggs[b] = run;
+    run = Op::combine(run, a);
+  }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(THREADS) scan_down(
+    Op op, int tpb, const typename Op::Agg* block_prefix) {
+  using Agg = typename Op::Agg;
+  __shared__ int s_words[SCAN_SMEM_WORDS];
+  __shared__ Agg s_tot[33];
+  const int* w = stage_words(s_words, op.words, op.n_words, SCAN_SMEM_WORDS);
+  Agg carry = block_prefix[blockIdx.x];
+  for (int k = 0; k < tpb; ++k) {
+    const long long base = ((long long)blockIdx.x * tpb + k) * SCAN_TILE;
+    if (base >= op.n) break;  // block-uniform
+    int x[SCAN_ITEMS], y[SCAN_ITEMS];
+    load_items(op, base, x, y);
+    Agg total;
+    const Agg excl = block_exclusive_scan<Op>(
+        thread_aggregate(op, base, x, y, w), s_tot, &total);
+    Agg p = Op::combine(carry, excl);
+    const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+    int o0[SCAN_ITEMS], o1[SCAN_ITEMS];
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      if (i0 + j < op.n) p = Op::combine(p, op.element(i0 + j, x[j], y[j], w));
+      op.emit(p, &o0[j], &o1[j]);
+    }
+    const bool vec = i0 + SCAN_ITEMS <= op.n &&
+                     ((reinterpret_cast<uintptr_t>(op.out0) |
+                       reinterpret_cast<uintptr_t>(op.out1)) & 15u) == 0;
+    if (vec) {
+#pragma unroll
+      for (int j = 0; j < SCAN_ITEMS; j += 4) {
+        *reinterpret_cast<int4*>(op.out0 + i0 + j) =
+            make_int4(o0[j], o0[j + 1], o0[j + 2], o0[j + 3]);
+        *reinterpret_cast<int4*>(op.out1 + i0 + j) =
+            make_int4(o1[j], o1[j + 1], o1[j + 2], o1[j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < SCAN_ITEMS; ++j) {
+        if (i0 + j < op.n) {
+          op.out0[i0 + j] = o0[j];
+          op.out1[i0 + j] = o1[j];
+        }
+      }
+    }
+    carry = Op::combine(carry, total);
+  }
+}
+
+// Blocks of a scan over n elements at `tpb` tiles per block.
+inline int scan_blocks(long long n, int tpb) {
+  const long long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+  return (int)((tiles + tpb - 1) / tpb);
+}
+
+// The three launches of one scan. `block_aggs` holds scan_blocks(n, tpb)
+// aggregates of scratch.
+template <class Op>
+void launch_scan(const Op& op, int tpb, typename Op::Agg* block_aggs,
+                 cudaStream_t stream) {
+  const int nb = scan_blocks(op.n, tpb);
+  if (nb <= 0) return;
+  scan_reduce<Op><<<nb, THREADS, 0, stream>>>(op, tpb, block_aggs);
+  scan_totals<Op><<<1, TOTALS_THREADS, 0, stream>>>(block_aggs, nb);
+  scan_down<Op><<<nb, THREADS, 0, stream>>>(op, tpb, block_aggs);
+}
+
 }  // namespace

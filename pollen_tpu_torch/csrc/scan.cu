@@ -1,0 +1,214 @@
+// The scan family of the masked depth query, written for Hopper
+// (sm_90a): the routes that serve graphs past the ELL and crossing-
+// matrix budgets (>= 2^16 paths, or POLLEN_CROSS_BUDGET_MB). Three entry
+// points:
+//
+//   pollen_seg_scan      over the (segment, path)-sorted steps: inclusive
+//                        cumsums of w = mask[path] and of the first
+//                        selected step of each (segment, path) group.
+//                        Replaces pollen_tpu/kernels/segscan.py _kernel
+//                        (K6), head_carry included.
+//   pollen_run_scan      over the run index: inclusive cumsums of
+//                        mask[run_path] * run_count and of mask[run_path].
+//                        Replaces pollen_tpu/kernels/runscan.py _kernel
+//                        (K8).
+//   pollen_boundary_diff per-segment differences of one or two cumsums
+//                        at sorted bounds. Replaces pollen_tpu/kernels/
+//                        gatherb.py _kernel (K7) and the adjacent
+//                        difference after it.
+//
+// What bounds them on the H100: memory traffic. K6 and K8 read 8 B and
+// write 8 B per element, with a few integer operations each; K7 reads
+// its bounds and gathers two values per bound. Design:
+//
+//   * The scans are the three-launch reduce / scan-of-totals / downsweep
+//     of common.cuh, on an associative operator, so no block ever waits
+//     on another (no decoupled look-back spin). The inputs are read
+//     twice (24 B per element in all, against the 16 B minimum); a
+//     single-pass form is later work.
+//   * The mask is packed into bit words by the launch ahead of the scan
+//     and staged in shared memory (16 KB at 2^17 paths), so a lookup is
+//     one shift; past 2^17 paths the words are read from global memory.
+//     The TPU's select tournament and one-hot MXU lookup have no place
+//     here, nor have its triangular-matmul cumsums and log-step shifts:
+//     a thread scans its 8 consecutive elements in registers and warp
+//     shuffles order the threads.
+//   * "First selected step in its group" is carried by the operator, not
+//     by the TPU kernel's prefix max: an aggregate holds the selected
+//     count, whether a group starts inside, the selected count of the
+//     open (last) group and of the leading partial group, and the first
+//     flags counted as if no selected step came before. Composing two
+//     aggregates corrects the right one's leading group by the left
+//     one's open group, so a group that spans tiles or blocks counts
+//     once. A position starts a group where run_start[i] == i, as in the
+//     reference; head_carry selected steps open the array's leading
+//     group, so negative run_start entries (groups begun on a shard to
+//     the left) never match.
+//   * K7 is one thread per segment. The bounds are sorted, so a warp's
+//     gathers fall on nearby addresses; exact int32 at every size (the
+//     TPU's f32 one-hot windows needed < 2^24 steps and an overflow
+//     fix-up; neither applies). A bound outside [0, len] is clamped so a
+//     corrupt index cannot read outside the cumsum.
+
+#include "common.cuh"
+
+namespace {
+
+// K6: see the design notes above. Counts are int32, as in the reference.
+struct SegAgg {
+  int sw;  // selected steps
+  int hs;  // 1 if a group starts inside
+  int t;   // selected steps of the open (last) group; sw if hs == 0
+  int l;   // selected steps before the first group start; sw if hs == 0
+  int lf;  // first flags, the leading group counted as if opened here
+};
+
+struct SegScanOp {
+  using Agg = SegAgg;
+  const int* x;  // step_path_sorted
+  const int* y;  // run_start
+  int* out0;     // csum_w
+  int* out1;     // csum_first
+  long long n;
+  const int* words;
+  int n_words;
+  int head_carry;
+
+  static __device__ __forceinline__ Agg identity() { return {0, 0, 0, 0, 0}; }
+  static __device__ __forceinline__ Agg combine(const Agg& a, const Agg& b) {
+    Agg c;
+    c.sw = a.sw + b.sw;
+    c.hs = a.hs | b.hs;
+    c.t = b.hs ? b.t : a.t + b.sw;
+    c.l = a.hs ? a.l : a.l + b.l;
+    c.lf = a.lf + b.lf - (int)(a.t > 0 && b.l > 0);
+    return c;
+  }
+  __device__ __forceinline__ Agg element(long long i, int path, int rs,
+                                         const int* w) const {
+    const int sel = mask_bit(w, n_words, (unsigned)path);
+    const int start = (long long)rs == i;
+    return {sel, start, sel, start ? 0 : sel, sel};
+  }
+  // The prefix over [0, i] applied to the state (selected 0, open group
+  // head_carry, first flags 0).
+  __device__ __forceinline__ void emit(const Agg& p, int* o0, int* o1) const {
+    *o0 = p.sw;
+    *o1 = p.lf - (int)(head_carry > 0 && p.l > 0);
+  }
+};
+
+// K8: two plain sums.
+struct RunAgg {
+  int wc;  // selected run counts
+  int w;   // selected runs
+};
+
+struct RunScanOp {
+  using Agg = RunAgg;
+  const int* x;  // run_path
+  const int* y;  // run_count
+  int* out0;     // csum of mask[run_path] * run_count
+  int* out1;     // csum of mask[run_path]
+  long long n;
+  const int* words;
+  int n_words;
+
+  static __device__ __forceinline__ Agg identity() { return {0, 0}; }
+  static __device__ __forceinline__ Agg combine(const Agg& a, const Agg& b) {
+    return {a.wc + b.wc, a.w + b.w};
+  }
+  __device__ __forceinline__ Agg element(long long, int path, int count,
+                                         const int* w) const {
+    const int sel = mask_bit(w, n_words, (unsigned)path);
+    return {sel * count, sel};
+  }
+  __device__ __forceinline__ void emit(const Agg& p, int* o0, int* o1) const {
+    *o0 = p.wc;
+    *o1 = p.w;
+  }
+};
+
+__device__ __forceinline__ int exclusive_at(const int* c, long long len,
+                                            int b) {
+  const long long at = min(max((long long)b, 0LL), len);
+  return at == 0 ? 0 : __ldg(c + at - 1);
+}
+
+__global__ void __launch_bounds__(THREADS) boundary_diff_kernel(
+    const int* c0, const int* c1, long long len, const int* bounds, int n,
+    int* o0, int* o1) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int lo = __ldg(bounds + i);
+  const int hi = __ldg(bounds + i + 1);
+  o0[i] = exclusive_at(c0, len, hi) - exclusive_at(c0, len, lo);
+  if (c1 != nullptr) {
+    o1[i] = exclusive_at(c1, len, hi) - exclusive_at(c1, len, lo);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of block-aggregate scratch a scan of n elements at `tpb` tiles
+// per block needs (kind 0: pollen_seg_scan, 1: pollen_run_scan).
+long long pollen_scan_scratch_bytes(int kind, long long n, int tpb) {
+  const long long nb = scan_blocks(n, tpb);
+  return nb * (long long)(kind == 0 ? sizeof(SegAgg) : sizeof(RunAgg));
+}
+
+int pollen_seg_scan(const void* path, const void* run_start, long long n,
+                    int head_carry, const void* mask, int elem_bytes,
+                    int n_paths, void* words, int n_words, int tpb,
+                    void* scratch, void* csum_w, void* csum_first,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* w = static_cast<int*>(words);
+  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
+  SegScanOp op{static_cast<const int*>(path),
+               static_cast<const int*>(run_start),
+               static_cast<int*>(csum_w),
+               static_cast<int*>(csum_first),
+               n,
+               w,
+               n_words,
+               head_carry};
+  launch_scan(op, tpb, static_cast<SegAgg*>(scratch), st);
+  return (int)cudaGetLastError();
+}
+
+int pollen_run_scan(const void* run_path, const void* run_count, long long n,
+                    const void* mask, int elem_bytes, int n_paths,
+                    void* words, int n_words, int tpb, void* scratch,
+                    void* csum_wc, void* csum_w, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* w = static_cast<int*>(words);
+  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
+  RunScanOp op{static_cast<const int*>(run_path),
+               static_cast<const int*>(run_count),
+               static_cast<int*>(csum_wc),
+               static_cast<int*>(csum_w),
+               n,
+               w,
+               n_words};
+  launch_scan(op, tpb, static_cast<RunAgg*>(scratch), st);
+  return (int)cudaGetLastError();
+}
+
+// `c1`/`o1` may be null (one cumsum). bounds holds n + 1 entries.
+int pollen_boundary_diff(const void* c0, const void* c1, long long len,
+                         const void* bounds, int n, void* o0, void* o1,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    boundary_diff_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+        static_cast<const int*>(c0), static_cast<const int*>(c1), len,
+        static_cast<const int*>(bounds), n, static_cast<int*>(o0),
+        static_cast<int*>(o1));
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

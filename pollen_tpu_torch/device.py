@@ -14,6 +14,10 @@ and moved to the device once, at the end.
 under the reference's names. ``from_host_arrays`` turns the fields of a
 reference ``DeviceGraph`` built with ``device="host"`` into one, so a
 state built by either package can be queried by the port.
+
+The segmented reductions at the end (``boundary_diff``,
+``bounded_segment_sum``, ``first_in_group_mask``) are the plain torch
+forms of the reference's helpers of the same names.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from pollen_tpu.flatgfa import GraphArrays
+from .flatgfa import GraphArrays
 
 from .kernels import crossmat as _cm
 from .kernels import ellscan as _ell
@@ -386,8 +390,8 @@ def build_graph(
     run_path = np.concatenate([run_path, np.full(r_pad - r, p, np.int32)])
     run_count = np.concatenate([run_count, np.zeros(r_pad - r, np.int32)])
 
-    # Boundary-plan gates the router reads (the plans' arrays feed the
-    # boundary-gather kernel, which the port has not yet).
+    # Boundary-plan gates the router reads (the port's boundary kernel
+    # reads the bounds themselves and needs no plan arrays).
     bnd_w_rows = _plan_rows(
         seg_bounds, s_pad, s_pad < (1 << 24) and n > 0
     )
@@ -468,3 +472,45 @@ def _plan_rows(bounds: np.ndarray, s_pad: int, eligible: bool) -> int:
         return 0
     plan = plan_boundary(bounds, s_pad)
     return plan.w_rows if len(plan.over_tiles) <= 64 else 0
+
+
+# ---------------------------------------------------------------------------
+# Segmented reductions over the sorted indexes (plain torch; the
+# reference's pollen_tpu/device.py helpers of the same names)
+# ---------------------------------------------------------------------------
+
+
+def boundary_values(csum: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """``exclusive_csum[bounds]``: ``csum[b - 1]``, and 0 where b == 0.
+    A bound may equal ``csum``'s length."""
+    padded = torch.cat([csum.new_zeros(1), csum])
+    return padded[bounds.long()]
+
+
+def boundary_diff(csum: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Per-range sums of the sequence whose inclusive cumsum is
+    ``csum``, for contiguous ranges [bounds[i], bounds[i+1])."""
+    v = boundary_values(csum, bounds)
+    return v[1:] - v[:-1]
+
+
+def bounded_segment_sum(
+    weights: torch.Tensor, bounds: torch.Tensor
+) -> torch.Tensor:
+    """Sum ``weights`` within each [bounds[i], bounds[i+1]) range (the
+    ranges contiguous in ``weights``' order): one cumsum, one boundary
+    difference, in the weights' own dtype."""
+    return boundary_diff(torch.cumsum(weights, 0, dtype=weights.dtype), bounds)
+
+
+def first_in_group_mask(
+    weights: torch.Tensor, run_start: torch.Tensor
+) -> torch.Tensor:
+    """1 where a nonzero weight is the first nonzero of its group, the
+    groups being the contiguous runs that start at ``run_start``;
+    int32. Counting these per segment counts distinct paths (uniq)."""
+    w = (weights != 0).to(torch.int32)
+    csum = torch.cumsum(w, 0, dtype=torch.int32)
+    excl = csum - w
+    within = csum - excl[run_start.long()]
+    return w * (within == 1).to(torch.int32)

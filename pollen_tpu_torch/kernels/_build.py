@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the csrc/*.cu entry points (pointers and the stream
 # as c_void_p: a bare Python int would be passed as a 32-bit int).
 _MASK = (_P, _I, _I, _P, _I)  # mask, elem_bytes, n_paths, words, n_words
@@ -75,7 +76,24 @@ SIGNATURES = {
         _P, _I, _I, _I, _P, _I,  # masks, elem_bytes, n_paths, q, words, n_words
         _P,  # stream
     ),
+    # scan.cu
+    "pollen_scan_scratch_bytes": (_I, _L, _I),  # kind, n, tiles per block
+    "pollen_seg_scan": (
+        _P, _P, _L, _I,  # path, run_start, n, head_carry
+        *_MASK,
+        _I, _P, _P, _P, _P,  # tiles per block, scratch, csum_w, csum_first, stream
+    ),
+    "pollen_run_scan": (
+        _P, _P, _L,  # run_path, run_count, n
+        *_MASK,
+        _I, _P, _P, _P, _P,  # tiles per block, scratch, csum_wc, csum_w, stream
+    ),
+    "pollen_boundary_diff": (
+        _P, _P, _L, _P, _I, _P, _P, _P,  # c0, c1, len, bounds, n, o0, o1, stream
+    ),
 }
+# Return types other than the launch's error code.
+RESTYPES = {"pollen_scan_scratch_bytes": _L}
 
 _lib = None
 build_log = ""
@@ -162,7 +180,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

@@ -3,11 +3,13 @@
 A port of pollen_tpu/ops/depth.py's single and batched masked queries
 (odgi ``depth -d``, ``depth -d -s``, and ``depth -S``, many subsets in
 one device pass): the router picks the cheapest resident index with
-the reference's cost model, and the tiered split ELL ("ell") and
-crossing-matrix ("cross") routes run the CUDA kernels on a CUDA graph.
-A CPU graph follows the reference's CPU dispatch with plain versions.
-``plain=True`` runs a route's plain PyTorch version on any device (the
-reference's ``pallas=False``), which is what the kernels are held to.
+the reference's cost model, and every route it can pick runs its CUDA
+kernels on a CUDA graph: the tiered split ELL ("ell"), the crossing
+matrix ("cross"), and the scan family for graphs past both budgets
+("runs" over the run index, "scan" and "xla" over the sorted steps).
+On a CPU graph each wrapper runs its plain version. ``plain=True``
+runs a route's plain PyTorch version on any device (the reference's
+``pallas=False``), which is what the kernels are held to.
 """
 
 from __future__ import annotations
@@ -17,19 +19,18 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pollen_tpu.flatgfa import GraphArrays
+from ..flatgfa import GraphArrays
 
-from ..device import TorchGraph
+from ..device import (
+    TorchGraph,
+    bounded_segment_sum,
+    first_in_group_mask,
+)
 from ..kernels import crossmat as _cm
 from ..kernels import ellscan as _ell
-
-# Where the routes without a kernel in the port wait (ROADMAP.md).
-_NOT_PORTED = (
-    "the {route!r} masked-depth route has no CUDA kernel yet (ROADMAP.md "
-    "queue 1 item 5, scan family: kernels K6-K8); this graph routes "
-    "there because it has >= 2^16 paths or its indexes exceed "
-    "POLLEN_CROSS_BUDGET_MB"
-)
+from ..kernels import gatherb as _gb
+from ..kernels import runscan as _rs
+from ..kernels import segscan as _ss
 
 
 def seg_depth_with_uniq(dg: TorchGraph) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -40,46 +41,58 @@ def seg_depth_with_uniq(dg: TorchGraph) -> Tuple[torch.Tensor, torch.Tensor]:
     return depth, uniq
 
 
-def _boundary_diff(csum: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
-    """Per-range sums for [bounds[i], bounds[i+1]) of the sequence whose
-    inclusive cumsum is ``csum``."""
-    padded = torch.cat([csum.new_zeros(1), csum])
-    v = padded[bounds.long()]
-    return v[1:] - v[:-1]
-
-
-def _extend_mask(dg: TorchGraph, path_mask: torch.Tensor) -> torch.Tensor:
-    """The mask as int32[P+1]: the padding sentinel path p maps to 0."""
-    m = torch.zeros(dg.num_paths + 1, dtype=torch.int32, device=dg.device)
-    m[: dg.num_paths] = path_mask.to(torch.int32)[: dg.num_paths]
-    return m
-
-
 def seg_depth_with_uniq_masked(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked (depth, uniq) over the sorted step index (plain; the
-    reference's "scan"/"xla" routes)."""
-    w = _extend_mask(dg, path_mask)[dg.step_path_sorted.long()]
-    csum = torch.cumsum(w, 0)
-    depth = _boundary_diff(csum, dg.seg_bounds)
-    # First selected step of each (segment, path) group.
-    excl = csum - w
-    within = csum - excl[dg.run_start.long()]
-    first = (w != 0).to(torch.int64) * (within == 1).to(torch.int64)
-    uniq = _boundary_diff(torch.cumsum(first, 0), dg.seg_bounds)
-    return depth.to(torch.int32), uniq.to(torch.int32)
+    """Masked (depth, uniq) over the sorted step index: the reference's
+    portable XLA form, in plain torch."""
+    w = _ss.lookup_mask(path_mask.to(dg.device)[: dg.num_paths], dg.step_path_sorted)
+    depth = bounded_segment_sum(w, dg.seg_bounds)
+    uniq = bounded_segment_sum(first_in_group_mask(w, dg.run_start), dg.seg_bounds)
+    return depth, uniq
 
 
 def seg_depth_with_uniq_runs(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked (depth, uniq) over the run-level index (plain; the
-    reference's "runs" route)."""
-    w = _extend_mask(dg, path_mask)[dg.run_path.long()]
-    depth = _boundary_diff(torch.cumsum(w * dg.run_count, 0), dg.run_seg_bounds)
-    uniq = _boundary_diff(torch.cumsum(w, 0), dg.run_seg_bounds)
-    return depth.to(torch.int32), uniq.to(torch.int32)
+    """Masked (depth, uniq) over the run-level index: the reference's
+    portable XLA form, in plain torch."""
+    w = _ss.lookup_mask(path_mask.to(dg.device)[: dg.num_paths], dg.run_path)
+    depth = bounded_segment_sum(w * dg.run_count, dg.run_seg_bounds)
+    uniq = bounded_segment_sum(w, dg.run_seg_bounds)
+    return depth, uniq
+
+
+def seg_depth_with_uniq_fused(
+    dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (depth, uniq) on the "scan" route: the segment scan (K6)
+    over the sorted steps, then the boundary stage (K7) on both cumsums,
+    int32 on the graph's device."""
+    m = path_mask.to(dg.device)[: dg.num_paths]
+    args = (dg.step_path_sorted, dg.run_start, m)
+    if plain:
+        csums = _ss.masked_depth_cumsums_plain(*args)
+        return _gb.gather_boundary_diff_plain(csums, dg.seg_bounds)
+    return _ss.depth_uniq_from_cumsums(
+        *_ss.masked_depth_cumsums(*args), dg.seg_bounds
+    )
+
+
+def seg_depth_with_uniq_runs_fused(
+    dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (depth, uniq) on the "runs" route: the run scan (K8) over
+    the run index, then the boundary stage (K7) on both cumsums, int32
+    on the graph's device."""
+    m = path_mask.to(dg.device)[: dg.num_paths]
+    args = (dg.run_path, dg.run_count, m)
+    if plain:
+        csums = _rs.masked_run_cumsums_plain(*args)
+        return _gb.gather_boundary_diff_plain(csums, dg.run_seg_bounds)
+    return _gb.gather_boundary_diff(
+        _rs.masked_run_cumsums(*args), dg.run_seg_bounds
+    )
 
 
 def _residual(res: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
@@ -377,12 +390,10 @@ def masked_seg_depth(
         depth, uniq = seg_depth_with_uniq_cross(
             dg, path_mask, plain=not on_cuda
         )
-    elif on_cuda:
-        raise NotImplementedError(_NOT_PORTED.format(route=best))
-    elif dg.run_path.shape[0]:
-        depth, uniq = seg_depth_with_uniq_runs(dg, path_mask)
-    else:
-        depth, uniq = seg_depth_with_uniq_masked(dg, path_mask)
+    elif best == "runs":
+        depth, uniq = seg_depth_with_uniq_runs_fused(dg, path_mask)
+    else:  # "scan" or "xla": the reference's accelerator takes the scan
+        depth, uniq = seg_depth_with_uniq_fused(dg, path_mask)
     return depth.cpu().numpy(), uniq.cpu().numpy()
 
 
@@ -414,13 +425,25 @@ def seg_depth_with_uniq_batch(
         depth, uniq = seg_depth_with_uniq_cross_batch(
             dg, path_masks, plain=not on_cuda
         )
-    elif on_cuda:
-        raise NotImplementedError(_NOT_PORTED.format(route=route))
     else:
-        pairs = [seg_depth_with_uniq_runs(dg, m) for m in path_masks]
-        depth = torch.stack([d for d, _ in pairs])
-        uniq = torch.stack([u for _, u in pairs])
+        depth, uniq = seg_depth_with_uniq_runs_batch(dg, path_masks)
     return depth.cpu().numpy(), uniq.cpu().numpy()
+
+
+def seg_depth_with_uniq_runs_batch(
+    dg: TorchGraph, path_masks: torch.Tensor, plain: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batch's "runs" route: each mask through the runs route (K8,
+    then K7), its answers gathered into int32 (Q, N) on the graph's
+    device, one host copy for the batch."""
+    q, n = path_masks.shape[0], dg.num_segments
+    depth = torch.empty((q, n), dtype=torch.int32, device=dg.device)
+    uniq = torch.empty_like(depth)
+    for i in range(q):
+        depth[i], uniq[i] = seg_depth_with_uniq_runs_fused(
+            dg, path_masks[i], plain=plain
+        )
+    return depth, uniq
 
 
 def path_depth(dg: TorchGraph) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -429,8 +452,8 @@ def path_depth(dg: TorchGraph) -> Tuple[torch.Tensor, torch.Tensor]:
     step_seg = (dg.steps >> 1).long()
     lens = dg.seg_len[step_seg].long()
     weighted = seg_depth[step_seg].long() * lens
-    path_len = _boundary_diff(torch.cumsum(lens, 0), dg.path_bounds)
-    path_sum = _boundary_diff(torch.cumsum(weighted, 0), dg.path_bounds)
+    path_len = bounded_segment_sum(lens, dg.path_bounds)
+    path_sum = bounded_segment_sum(weighted, dg.path_bounds)
     return path_len, path_sum
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pollen_tpu.flatgfa import GraphArrays
+from .flatgfa import GraphArrays
 
 
 def synth_graph(

@@ -1,11 +1,15 @@
-"""The port never imports JAX: every module of ``pollen_tpu_torch`` and
-a CLI run load in a fresh interpreter with ``jax`` absent from
-``sys.modules`` (the machine with the card has no JAX installed)."""
+"""The port imports neither JAX nor anything of the JAX package: every
+module of ``pollen_tpu_torch`` and a CLI run load in a fresh interpreter
+with ``jax`` and every ``pollen_tpu`` module absent from
+``sys.modules`` (the machine with the card has no JAX installed), and
+no import statement of the port or of ``chip_smoke.py`` names them."""
 
+import ast
 import pathlib
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -13,26 +17,30 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
-import contextlib, io, pkgutil, importlib, sys
+import importlib, io, pkgutil, sys
+sys.path.insert(0, ".")
+import chip_smoke
 import pollen_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     pollen_tpu_torch.__path__, "pollen_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 from pollen_tpu_torch import cli
-out = io.StringIO()
-cli.main(["--device", "cpu", "-I", sys.argv[1], "depth", "-d", "-s",
-          sys.argv[2]], stdout=out)
-assert out.getvalue() == open(sys.argv[3]).read()
-assert "jax" not in sys.modules, sorted(
-    m for m in sys.modules if m.split(".")[0] == "jax")
-assert not any(m.startswith("pollen_tpu.") and m.split(".")[1] in
-               ("device", "ops", "kernels", "parallel") for m in sys.modules)
+for argv, golden in (
+    (["depth", "-d", "-s", sys.argv[2]], sys.argv[3]),
+    (["depth", "-d"], sys.argv[4]),
+):
+    out = io.StringIO()
+    cli.main(["--device", "cpu", "-I", sys.argv[1], *argv], stdout=out)
+    assert out.getvalue() == open(golden).read(), argv
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pollen_tpu"))
+assert not loaded, loaded
 print(len(names))
 """
 
 
-def test_port_imports_no_jax():
+def test_port_imports_nothing_of_jax_or_pollen_tpu():
     golden = REPO / "tests" / "golden"
     proc = subprocess.run(
         [
@@ -42,6 +50,7 @@ def test_port_imports_no_jax():
             str(REPO / "tests" / "graphs" / "tiny.gfa"),
             str(golden / "tiny.depthpaths"),
             str(golden / "tiny.depth_subset"),
+            str(golden / "tiny.depth"),
         ],
         cwd=REPO,
         capture_output=True,
@@ -49,5 +58,29 @@ def test_port_imports_no_jax():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # __main__, cli, device, synth, kernels (+4), ops (+1)
-    assert int(proc.stdout.strip()) >= 10
+    # __main__, cli, device, fileformat, flatgfa, synth, kernels (+7),
+    # ops (+1)
+    assert int(proc.stdout.strip()) >= 15
+
+
+SOURCES = sorted((REPO / "pollen_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"
+]
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES]
+)
+def test_no_import_statement_names_jax_or_pollen_tpu(path):
+    """Imports inside functions count too (they run only on the card)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "pollen_tpu"), (
+                f"{path.name}:{node.lineno} imports {mod}"
+            )

@@ -1,5 +1,7 @@
 """Port ingest (pollen_tpu_torch.device.build_graph) against the JAX
-reference's host ingest, field by field.
+reference's host ingest, field by field; and the port's own copies of
+the arena's parser, the binary loader and the CLI grammar against the
+reference's.
 
 Every array must be equal (np.array_equal: integer counts and packed
 words, tolerance 0) and every static field identical; the boundary plan
@@ -15,8 +17,14 @@ import torch
 
 from conftest import FIXTURE_GRAPHS, GRAPH_DIR
 from graphgen import big_step_graph, random_graph
+from pollen_tpu import cli as ref_cli
+from pollen_tpu import fileformat as ref_fileformat
+from pollen_tpu import flatgfa as ref_flatgfa
 from pollen_tpu.device import build_device_graph
 from pollen_tpu.flatgfa import parse_gfa, parse_gfa_file
+from pollen_tpu_torch import cli as port_cli
+from pollen_tpu_torch import fileformat as port_fileformat
+from pollen_tpu_torch import flatgfa as port_flatgfa
 from pollen_tpu.kernels import gatherb as ref_gatherb
 from pollen_tpu.ops import depth as ref_depth
 from pollen_tpu_torch.device import (
@@ -158,3 +166,69 @@ def test_build_graph_refuses_missing_cuda():
         build_graph(g, "cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_graph(g, "cpu").to("cuda")
+
+
+def assert_same_arena(ref, port):
+    for f in dataclasses.fields(ref):
+        a, b = getattr(ref, f.name), getattr(port, f.name)
+        assert a.dtype == b.dtype and a.shape == b.shape, f.name
+        assert np.array_equal(a, b), f.name
+
+
+@pytest.mark.parametrize("case", FIXTURE_GRAPHS + sorted(GENERATED))
+def test_port_parser_matches_reference_arena(case, tmp_path):
+    """The port's own parse_gfa / parse_gfa_file and load_flatgfa give
+    the reference's arena, field by field (the reference's parse with
+    and without its C++ scanner)."""
+    if case in GENERATED:
+        path = tmp_path / f"{case}.gfa"
+        path.write_text(GENERATED[case]())
+    else:
+        path = GRAPH_DIR / case
+    port = port_flatgfa.parse_gfa_file(str(path))
+    for native in (True, False):
+        assert_same_arena(parse_gfa(path.read_bytes(), native=native), port)
+    assert_same_arena(parse_gfa_file(str(path)), port)
+    binary = tmp_path / "g.flatgfa"
+    ref_fileformat.save_flatgfa(str(binary), parse_gfa_file(str(path)), spare=0.5)
+    assert_same_arena(
+        ref_fileformat.load_flatgfa(str(binary)),
+        port_fileformat.load_flatgfa(str(binary)),
+    )
+
+
+def test_port_parser_refuses_what_the_reference_refuses():
+    for bad in (b"X\tfoo\n", b"S\t1\tACGT\nP\tp\t2+\t*\n", b"L\t1\t?\t1\t+\t0M\n"):
+        with pytest.raises(ref_flatgfa.GFAParseError):
+            parse_gfa(bad, native=False)
+        with pytest.raises(port_flatgfa.GFAParseError):
+            port_flatgfa.parse_gfa(bad)
+
+
+COMMAND_LINES = [
+    ["-I", "g.gfa", "depth"],
+    ["-I", "g.gfa", "depth", "-d"],
+    ["-I", "g.gfa", "depth", "-d", "-s", "sub.txt"],
+    ["-I", "g.gfa", "depth", "-s", "sub.txt"],
+    ["-i", "g.flatgfa", "depth", "-d", "-S", "batch.txt"],
+    ["-I", "g.gfa", "depth", "-S", "batch.txt"],
+    ["-I", "g.gfa", "depth", "-r", "a", "-r", "b"],
+    ["-I", "g.gfa", "depth", "-b", "x.bed", "-S", "batch.txt"],
+    ["--ell-objective", "batch", "-I", "g.gfa", "serve"],
+    ["-I", "g.gfa", "-p", "0.5", "-m", "serve"],
+    ["depth", "--graph-depth-table", "--subset-paths", "s"],
+    [],
+]
+
+
+@pytest.mark.parametrize("argv", COMMAND_LINES, ids=lambda a: " ".join(a) or "empty")
+def test_port_grammar_matches_reference(argv):
+    """The port's build_parser parses a command line to the reference's
+    namespace, plus ``--device``; _needs_masked_index agrees."""
+    ref = ref_cli.build_parser().parse_args(argv)
+    port = port_cli.build_parser().parse_args(argv)
+    assert port.device == "cuda"
+    got = vars(port)
+    del got["device"]
+    assert got == vars(ref)
+    assert port_cli._needs_masked_index(port) == ref_cli._needs_masked_index(ref)
