@@ -36,14 +36,28 @@ under POLLEN_CROSS_BUDGET_MB=0 (phase 2); and two synthetic graphs,
 wide_p2e17 (2^17 paths, route "scan") and bench_runs (route "runs"),
 8 masks and a Q = 32 batch each, against plain and numpy (phase 3).
 
+The flat single-tier ELL (K9) and the crossing-matrix probe ladder
+(K10 raw and vd, K11, K12) are checked against their plain versions on
+the fixtures, on path ids up to 65535 and on a seeded matrix where only
+some tiles hold counts >= 2 (phase 1). Two more paths follow: the flat
+ELL path (``build_ell`` on the real runs of bench and chr8_third, then
+``masked_ell_depth`` under 8 masks, against plain, numpy and the routed
+query) and the probe path (the two probe scripts' ``run`` on bench's
+16 MiB crossing matrix and chr8_third's 256 MiB one). K9 is timed
+against K3 on the same slots (flat against tall).
+
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
 batch: phase 2's ``-S`` requests and phase 3's batches; the scan
-family: its phase 2 requests and phase 3 queries and batches) and read
-right after it: every kernel must have been launched by its path.
-Exits nonzero at the first failed check. The second-to-last line is one
-JSON object with each kernel's launches, error, time, bound and library
-call time; the last is ``{"ok": true, "device": {...}}``.
+family: its phase 2 requests and phase 3 queries and batches; the flat
+ELL path; the probe path) and read right after it: every kernel must
+have been launched by its path. Each kernel's time is its CUDA-event
+wall per call and its device time per call from a replayed CUDA graph
+(``pollen_tpu_torch/probes/timing.py``), beside its plain version's
+wall, its bound and its library call (wall and replay). Exits nonzero
+at the first failed check. The line before the last is one JSON object
+with each kernel's launches, error, times, bound and library call
+times; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -63,6 +77,7 @@ REPO = pathlib.Path(__file__).resolve().parent
 SRC = "pollen_tpu_torch/csrc/depth.cu"
 SRC_BATCH = "pollen_tpu_torch/csrc/depth_batch.cu"
 SRC_SCAN = "pollen_tpu_torch/csrc/scan.cu"
+SRC_PROBES = "pollen_tpu_torch/csrc/probes.cu"
 # name -> (source, TPU kernel replaced, launch-count key)
 KERNELS = {
     "ell_splitn (K1)": (SRC, "pollen_tpu/kernels/ellscan.py:539", "ell_splitn"),
@@ -77,12 +92,30 @@ KERNELS = {
     "seg_scan (K6)": (SRC_SCAN, "pollen_tpu/kernels/segscan.py:129", "seg_scan"),
     "boundary (K7)": (SRC_SCAN, "pollen_tpu/kernels/gatherb.py:123", "boundary"),
     "run_scan (K8)": (SRC_SCAN, "pollen_tpu/kernels/runscan.py:65", "run_scan"),
+    "ell_flat (K9)": (SRC, "pollen_tpu/kernels/ellscan.py:326", "ell_flat"),
+    "cross_probe_raw (K10)": (
+        SRC_PROBES, "probes/crossmat_floor.py:49", "cross_probe_raw"
+    ),
+    "cross_probe_vd (K10)": (
+        SRC_PROBES, "probes/crossmat_floor.py:58", "cross_probe_vd"
+    ),
+    "cross_probe_v1 (K11)": (
+        SRC_PROBES, "probes/crossmat_variants.py:49", "cross_probe_v1"
+    ),
+    "cross_probe_v2 (K12)": (
+        SRC_PROBES, "probes/crossmat_variants.py:64", "cross_probe_v2"
+    ),
 }
 # The kernels of each main path: the single query, the batch, the scan
 # family (single queries and batches past the ELL and matrix budgets).
 SINGLE_PATH = ("ell_splitn (K1)", "cross (K2)", "ell_tier (K3)")
 BATCH_PATH = ("ell_splitn_batch (K4)", "cross_batch (K5)")
 SCAN_PATH = ("seg_scan (K6)", "boundary (K7)", "run_scan (K8)")
+# The flat-ELL path (build_ell, then masked_ell_depth) and the probe
+# ladder (the two probe scripts' run()).
+FLAT_PATH = ("ell_flat (K9)",)
+PROBE_PATH = ("cross_probe_raw (K10)", "cross_probe_vd (K10)",
+              "cross_probe_v1 (K11)", "cross_probe_v2 (K12)")
 # Batch sizes of phase 1 (40: over the kernels' 32-query chunk) and of
 # the batch timing.
 KERNEL_QS = (1, 5, 32, 40)
@@ -202,10 +235,11 @@ def describe_profile(per: dict) -> str:
 
 def _counters():
     from pollen_tpu_torch.kernels import (
-        crossmat, ellscan, gatherb, runscan, segscan,
+        crossmat, crossprobe, ellscan, gatherb, runscan, segscan,
     )
 
-    return [m.launches for m in (ellscan, crossmat, segscan, gatherb, runscan)]
+    return [m.launches for m in (ellscan, crossmat, segscan, gatherb, runscan,
+                                 crossprobe)]
 
 
 def reset_launches():
@@ -820,14 +854,18 @@ def phase_timing(graphs: dict, batch: dict, card: str) -> dict:
               tensor_ops=4 * 32 * ac.numel() * (2 if nib else 1)),
         lambda: torch.matmul(fm32, a_c),
     )
-    return time_kernels(times)
+    return time_kernels(times, card)
 
 
-def time_kernels(times: dict) -> dict:
-    """Each kernel against its plain version (runs plain, kernel,
-    kernel, plain) and its library call, CUDA events; the profiler's
-    device time per call is printed beside."""
+def time_kernels(times: dict, card: str) -> dict:
+    """Each kernel against its plain version (CUDA-event wall per call,
+    runs plain, kernel, kernel, plain) and its library call; the device
+    time per call of the kernel and of the library call from a replayed
+    CUDA graph (``probes.timing.replay_us``), and the profiler's
+    breakdown by kernel beside."""
     import torch
+
+    from pollen_tpu_torch.probes.timing import replay_us
 
     out = {}
     for name, (kern, plain, where, bnd, library) in times.items():
@@ -835,12 +873,28 @@ def time_kernels(times: dict) -> dict:
         for a, b in zip(got if isinstance(got, tuple) else [got], want):
             need((a is None and b is None) or torch.equal(a, b),
                  f"{name} at {where}: kernel != plain")
-        out[name] = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                     cuda_ms(plain), where, bnd,
-                     None if library is None else cuda_ms(library))
+        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
+                          cuda_ms(plain))
+        lib_ms = None if library is None else cuda_ms(library)
+        dev_ms = replay_us(kern) / 1e3
+        lib_dev_ms = None if library is None else replay_us(library) / 1e3
+        bound_ms, bound_by = bnd
+        out[name] = dict(
+            ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms, where=where,
+        )
         print(f"{name} at {where}: kernel call, "
               f"{describe_profile(device_profile(kern))}; plain call, "
               f"{describe_profile(device_profile(plain, reps=10))}", flush=True)
+        lib = ("none" if library is None else
+               f"{lib_ms * 1e3:.2f} us wall, {lib_dev_ms * 1e3:.2f} us device")
+        print(f"{name} at {where} [{card}]: kernel {min(k1, k2) * 1e3:.2f} us "
+              f"wall, {dev_ms * 1e3:.2f} us device (graph replay); plain "
+              f"{min(p1, p2) * 1e3:.2f} us wall (runs plain, kernel, kernel, "
+              f"plain: {p1 * 1e3:.2f} {k1 * 1e3:.2f} {k2 * 1e3:.2f} "
+              f"{p2 * 1e3:.2f} us); bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}); library call {lib}", flush=True)
     return out
 
 
@@ -1146,7 +1200,315 @@ def phase_scan_timing(scan: dict, card: str) -> dict:
         bound(16 * r + dgr.num_paths, core_ops=4 * r),
         lambda: torch.cumsum(ones_r, 0, dtype=torch.int32),
     )
-    return time_kernels(times)
+    return time_kernels(times, card)
+
+
+def probe_matrix(seed, rows=64, cols=8192, complex_every=5):
+    """A seeded uint8 nibble matrix with counts 0/1, save every
+    ``complex_every``-th 128-column tile, which holds counts up to 15."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = ((rng.random((rows, cols)) < 0.3)
+         | ((rng.random((rows, cols)) < 0.3).astype(np.uint8) << 4))
+    a = a.astype(np.uint8)
+    for t in range(0, cols // 128, complex_every):
+        a[:, t * 128:(t + 1) * 128] = rng.integers(0, 256, (rows, 128))
+    return a
+
+
+def compare_probes(errs, cross, m, what):
+    """K10-K12 on one matrix and mask against their plain versions; v2
+    with its flags all 1, all 0 and from tile_flags."""
+    import torch
+
+    from pollen_tpu_torch.kernels import crossprobe as cp
+
+    for mode, name in (("raw", "cross_probe_raw (K10)"),
+                       ("vd", "cross_probe_vd (K10)"),
+                       ("v1", "cross_probe_v1 (K11)")):
+        kernel = getattr(cp, f"cross_probe_{mode}")
+        errs.compare(name, kernel(cross, m), cp.cross_probe_plain(cross, m, mode),
+                     what)
+    n_tiles = cross.shape[1] // cp.TILE
+    for label, flags in (
+        ("ones", torch.ones(n_tiles, dtype=torch.int32, device="cuda")),
+        ("zeros", torch.zeros(n_tiles, dtype=torch.int32, device="cuda")),
+        ("tile_flags", cp.tile_flags(cross, cp.TILE)),
+    ):
+        errs.compare("cross_probe_v2 (K12)", cp.cross_probe_v2(cross, m, flags),
+                     cp.cross_probe_plain(cross, m, "v2", flags),
+                     f"{what} flags {label}")
+
+
+def phase_kernels_flat_probes(errs: Errors):
+    """Phase 1 (K9-K12): the flat ELL kernel on build_ell of every
+    fixture's runs (planned K and K = 1, 2, 4, 16) and on path ids up to
+    65535; the probe ladder on every fixture's nibble matrix and on a
+    seeded 64 x 8192 matrix where only some tiles hold counts >= 2."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch import parse_gfa_file
+    from pollen_tpu_torch.device import _nibble_pack, build_graph
+    from pollen_tpu_torch.kernels import crossmat as cm
+    from pollen_tpu_torch.kernels import ellscan as ell
+
+    rng = np.random.default_rng(9)
+    for path in sorted((REPO / "tests" / "graphs").glob("*.gfa")):
+        g = parse_gfa_file(str(path))
+        runs = NumpyReference(build_graph(g, "cuda"))  # real runs only
+        run_path, run_count = runs.run_path, runs.run_count
+        run_seg = runs.run_seg.astype(np.int32)
+        masks = [torch.from_numpy(rng.random(g.num_paths) < 0.5).cuda()
+                 for _ in range(4)]
+        for k in (None, 1, 2, 4, 16):
+            flat, _ = ell.build_ell(run_path, run_count, run_seg,
+                                    g.num_segments, k=k)
+            flat = torch.from_numpy(flat).cuda()
+            for m in masks:
+                errs.compare("ell_flat (K9)", ell.masked_ell_depth(flat, m),
+                             ell.masked_ell_depth_plain(flat, m),
+                             f"{path.name} flat ELL k={k}")
+        p_pad = -(-g.num_paths // 128) * 128
+        n_pad = -(-g.num_segments // 128) * 128
+        a4 = torch.from_numpy(_nibble_pack(
+            run_path, run_seg, np.minimum(run_count, cm.CLIP_NIBBLE), p_pad,
+            n_pad)).cuda()
+        for m in masks:
+            compare_probes(errs, a4, m, f"{path.name} nibble matrix")
+    # Path ids >= 2^15 set the slot word's sign bit (65536-path masks:
+    # 2048 mask words, all staged in shared memory).
+    flat, heavy = ell.build_ell(
+        np.array([5, 32768, 40000, 65535], np.int32),
+        np.array([3, 7, 2, 1], np.int32), np.array([0, 0, 1, 2], np.int32),
+        num_segments=128, k=2,
+    )
+    need(heavy.size == 0, "high path ids: no segment should be heavy")
+    flat = torch.from_numpy(flat).cuda()
+    for _ in range(4):
+        m = rng.integers(0, 2, 65536).astype(np.int32)
+        m[[5, 32768, 40000, 65535]] = rng.integers(0, 2, 4)
+        mt = torch.from_numpy(m).cuda()
+        d, u = ell.masked_ell_depth(flat, mt)
+        errs.compare("ell_flat (K9)", (d, u), ell.masked_ell_depth_plain(flat, mt),
+                     "path ids 5, 32768, 40000, 65535")
+        want = [3 * m[5] + 7 * m[32768], 2 * m[40000], m[65535]]
+        need(d[:3].tolist() == want, f"high path ids: depth {d[:3].tolist()}, "
+             f"want {want}")
+    a = torch.from_numpy(probe_matrix(10)).cuda()
+    for _ in range(4):
+        compare_probes(errs, a, torch.from_numpy(rng.random(128) < 0.5).cuda(),
+                       "seeded 64 x 8192, every 5th tile complex")
+    torch.cuda.synchronize()
+    print("phase 1 (K9-K12): the flat ELL kernel equals plain on 8 fixtures "
+          "(build_ell with the planned K and K = 1, 2, 4, 16) and on path "
+          "ids 5, 32768, 40000, 65535; the probe ladder (raw, vd, v1, v2 "
+          "with flags all 1, all 0 and from tile_flags) equals plain on "
+          "the fixtures' nibble matrices and a seeded 64 x 8192 matrix; "
+          "4 masks each (tolerance 0: exact int32)", flush=True)
+
+
+def phase_flat_ell(graphs: dict) -> dict:
+    """The flat-ELL path: build_ell on the real runs of bench and
+    chr8_third, then masked_ell_depth (K9) under 8 masks each, against
+    plain torch on the card, a numpy sum over the runs (heavy columns
+    0) and, on the light segments, the routed query. Returns {name:
+    (flat slots on the card, heavy segment ids, graph)}."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import ellscan as ell
+    from pollen_tpu_torch.ops import depth as depth_op
+
+    rng = np.random.default_rng(12)
+    out = {}
+    for name in ("bench", "chr8_third"):
+        g, dg, reference = graphs[name]  # its run arrays: real runs only
+        t0 = time.perf_counter()
+        flat, heavy = ell.build_ell(reference.run_path, reference.run_count,
+                                    reference.run_seg.astype(np.int32),
+                                    dg.num_segments)
+        build_s = time.perf_counter() - t0
+        flat = torch.from_numpy(flat).cuda()
+        k, n_pad = flat.shape
+        n = dg.num_segments
+        light = np.ones(n, bool)
+        light[heavy] = False
+        print(f"{name}: build_ell {build_s:.3f} s: k={k}, {n_pad} columns, "
+              f"{heavy.size} heavy segments, {flat.numel() * 4 / 2**20:.2f} "
+              "MB of slots", flush=True)
+        for i, m in enumerate(scale_masks(g.num_paths, rng)):
+            mt = torch.from_numpy(m).cuda()
+            d, u = ell.masked_ell_depth(flat, mt)
+            d_pl, u_pl = ell.masked_ell_depth_plain(flat, mt)
+            need(torch.equal(d, d_pl) and torch.equal(u, u_pl),
+                 f"{name} flat mask {i}: differs from plain torch")
+            d, u = d.cpu().numpy(), u.cpu().numpy()
+            d_ref, u_ref = reference(m)
+            d_ref[heavy] = 0
+            u_ref[heavy] = 0
+            need(np.array_equal(d[:n], d_ref) and np.array_equal(u[:n], u_ref)
+                 and not d[n:].any() and not u[n:].any(),
+                 f"{name} flat mask {i}: differs from the numpy reference")
+            d_rt, u_rt = depth_op.masked_seg_depth(dg, torch.from_numpy(m))
+            need(np.array_equal(d[:n][light], d_rt[light])
+                 and np.array_equal(u[:n][light], u_rt[light]),
+                 f"{name} flat mask {i}: differs from the routed query on "
+                 "the light segments")
+        print(f"{name}: flat ELL under 8 masks equals plain torch, numpy "
+              f"(heavy columns 0) and the routed query on {int(light.sum())} "
+              "light segments", flush=True)
+        out[name] = (flat, heavy, g)
+    return out
+
+
+def phase_probes(graphs: dict, batch: dict) -> dict:
+    """The probe path: crossmat_floor.run and crossmat_variants.run on
+    bench_cross's matrix (16 MiB, resident in L2) and on chr8_third's,
+    ingested with cross_matrix="always" (256 MiB). Returns {name:
+    (matrix, mask, steps)}."""
+    import torch
+
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.probes import crossmat_floor, crossmat_variants
+
+    g_bench, dg_cross, _ = batch["bench_cross"]
+    g8 = graphs["chr8_third"][0]
+    t0 = time.perf_counter()
+    dg8 = build_graph(g8, "cuda", cross_matrix="always")
+    torch.cuda.synchronize()
+    print(f"chr8_third with its crossing matrix: ingest "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    out = {}
+    for name, g, dg in (("bench_cross", g_bench, dg_cross),
+                        ("chr8_third", g8, dg8)):
+        cross = dg.cross_matrix
+        need(dg.cross_nibble, f"{name}: expected a nibble matrix")
+        mask = torch.zeros(2 * cross.shape[0], dtype=torch.int32, device="cuda")
+        mask[: dg.num_paths] = 1
+        print(f"probes on {name}'s matrix {tuple(cross.shape)} "
+              f"({cross.numel() / 2**20:.0f} MiB):", flush=True)
+        floor = crossmat_floor.run(cross, mask, n_steps=g.num_steps)
+        variants = crossmat_variants.run(cross, mask, n_steps=g.num_steps)
+        need(all(r["exact"] for r in floor.values()),
+             f"{name}: a floor probe differs from its plain version")
+        need(all(r["depth_ok"] and r["uniq_ok"] in (True, "skipped")
+                 for k, r in variants.items() if k != "complex_tiles"),
+             f"{name}: a variant differs from v0")
+        out[name] = (cross, mask, g.num_steps)
+    return out
+
+
+def phase_flat_probe_timing(graphs: dict, flat: dict, probes: dict,
+                            errs: Errors, card: str) -> dict:
+    """K9 against K3 on the same slots at chr8_third (flat against
+    tall) at the planned K and at K = 2 and 4, then K9-K12 against
+    their plain versions and library calls (K10-K12 at both matrices,
+    first held against plain under a seeded random mask; the JSON line
+    keeps chr8_third's)."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import crossmat as cm
+    from pollen_tpu_torch.kernels import crossprobe as cp
+    from pollen_tpu_torch.kernels import ellscan as ell
+    from pollen_tpu_torch.probes.timing import replay_us
+
+    rng = np.random.default_rng(4)
+    slots, _, g8 = flat["chr8_third"]
+    _, dg8, reference = graphs["chr8_third"]
+    m = torch.from_numpy(rng.random(g8.num_paths) < 0.5).cuda()
+    planned_k = slots.shape[0]
+    # At K = 1 the tall packing holds the flat array's bytes in the same
+    # order, so only K = 2 and 4 compare two layouts.
+    for k in (planned_k, 2, 4):
+        if k == planned_k:
+            ks = slots
+        else:
+            ks, _ = ell.build_ell(reference.run_path, reference.run_count,
+                                  reference.run_seg.astype(np.int32),
+                                  dg8.num_segments, k=k)
+            ks = torch.from_numpy(ks).cuda()
+        n_pad = ks.shape[1]
+        tall = torch.from_numpy(ell.pack_ell_tall(ks.cpu().numpy())).cuda()
+        d_f, u_f = ell.masked_ell_depth(ks, m)
+        d_t, u_t = ell.masked_ell_depth_tall(tall, m, k)
+        d_p, u_p = ell.masked_ell_depth_plain(ks, m)
+        need(torch.equal(d_f, d_t[:n_pad]) and torch.equal(u_f, u_t[:n_pad])
+             and torch.equal(d_f, d_p) and torch.equal(u_f, u_p),
+             f"chr8_third k={k}: flat, tall and plain disagree")
+        flat_fn = functools.partial(ell.masked_ell_depth, ks, m)
+        tall_fn = functools.partial(ell.masked_ell_depth_tall, tall, m, k)
+        walls = [cuda_ms(f) * 1e3 for f in (flat_fn, tall_fn, tall_fn, flat_fn)]
+        devs = [replay_us(f) for f in (flat_fn, tall_fn, tall_fn, flat_fn)]
+        layout = "same layout" if k == 1 else "two layouts"
+        print(f"flat vs tall at chr8_third, k={k} ({layout}), {n_pad} columns, "
+              f"32-bit slots [{card}]: K9 flat {min(devs[0], devs[3]):.2f} us "
+              f"device, {min(walls[0], walls[3]):.2f} us wall; K3 tall "
+              f"{min(devs[1], devs[2]):.2f} us device, {min(walls[1], walls[2]):.2f}"
+              f" us wall (runs flat, tall, tall, flat: device "
+              f"{' '.join(f'{x:.2f}' for x in devs)} us; wall "
+              f"{' '.join(f'{x:.2f}' for x in walls)} us)", flush=True)
+        del tall
+    k, n_pad = slots.shape
+    times = {"ell_flat (K9)": (
+        functools.partial(ell.masked_ell_depth, slots, m),
+        functools.partial(ell.masked_ell_depth_plain, slots, m),
+        f"chr8_third flat ELL k={k}, {n_pad} columns",
+        bound(4 * k * n_pad + 8 * n_pad + g8.num_paths, core_ops=4 * k * n_pad),
+        None,
+    )}
+    out = time_kernels(times, card)
+
+    for name in ("bench_cross", "chr8_third"):
+        cross, mask, _ = probes[name]
+        rows, n = cross.shape
+        # The probe path ran under the all-ones mask: a seeded random one
+        # exercises the row skip and the folding at full size.
+        m_rand = torch.from_numpy(rng.random(mask.numel()) < 0.5).cuda()
+        compare_probes(errs, cross, m_rand & (mask != 0),
+                       f"{name} matrix, a seeded random mask")
+        flags = cp.tile_flags(cross, cp.TILE)
+        mp = cm.pad_mask(mask, 2 * rows)
+        # The library calls: float32 products of the (folded) mask and a
+        # copy of A made ahead of time (raw: the even paths against the
+        # bytes as they are; the rest: the unpacked nibbles), depth only.
+        even, raw_f = mp[0::2].float()[None], cross.float()
+        fm, a_f = cm.fold_mask(mp).float()[None], cm.unpack_cross(cross).float()
+        where = f"{name} matrix {tuple(cross.shape)}"
+        io = rows * n + 2 * rows + 8 * n
+        times = {
+            "cross_probe_raw (K10)": (
+                functools.partial(cp.cross_probe_raw, cross, mask),
+                functools.partial(cp.cross_probe_plain, cross, mask, "raw"),
+                where, bound(io, tensor_ops=2 * rows * n),
+                lambda: torch.matmul(even, raw_f),
+            ),
+            "cross_probe_vd (K10)": (
+                functools.partial(cp.cross_probe_vd, cross, mask),
+                functools.partial(cp.cross_probe_plain, cross, mask, "vd"),
+                where, bound(io, tensor_ops=2 * 2 * rows * n),
+                lambda: torch.matmul(fm, a_f),
+            ),
+            "cross_probe_v1 (K11)": (
+                functools.partial(cp.cross_probe_v1, cross, mask),
+                functools.partial(cp.cross_probe_plain, cross, mask, "v1"),
+                where, bound(io, tensor_ops=4 * 2 * rows * n),
+                lambda: torch.matmul(fm, a_f),
+            ),
+            "cross_probe_v2 (K12)": (
+                functools.partial(cp.cross_probe_v2, cross, mask, flags),
+                functools.partial(cp.cross_probe_plain, cross, mask, "v2", flags),
+                f"{where}, {int(flags.sum())}/{flags.numel()} tiles flagged",
+                bound(io + 4 * flags.numel(), tensor_ops=4 * 2 * rows * n),
+                lambda: torch.matmul(fm, a_f),
+            ),
+        }
+        out.update(time_kernels(times, card))  # chr8_third's rows stay
+        del raw_f, a_f
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1182,6 +1544,7 @@ def main() -> int:
     errs = Errors()
     phase_kernels(errs)
     phase_kernels_scan(errs)
+    phase_kernels_flat_probes(errs)
     stamp("phase 1 done")
     graphs: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1202,11 +1565,21 @@ def main() -> int:
         scan = phase_scale_scan()
         scanned = launch_counts()
         stamp("scan-family main path done")
+    reset_launches()
+    flat = phase_flat_ell(graphs)
+    flat_counts = launch_counts()
+    stamp("flat-ELL path done")
+    reset_launches()
+    probes = phase_probes(graphs, batch)
+    probe_counts = launch_counts()
+    stamp("probe path done")
     print(f"main-path launches: single query {single}; batch {batched}; "
-          f"scan family {scanned}", flush=True)
+          f"scan family {scanned}; flat ELL {flat_counts}; probes "
+          f"{probe_counts}", flush=True)
     launches = {}
     for names, counts in ((SINGLE_PATH, single), (BATCH_PATH, batched),
-                          (SCAN_PATH, scanned)):
+                          (SCAN_PATH, scanned), (FLAT_PATH, flat_counts),
+                          (PROBE_PATH, probe_counts)):
         for name in names:
             launches[name] = counts[KERNELS[name][2]]
             need(launches[name] > 0,
@@ -1218,22 +1591,15 @@ def main() -> int:
     stamp("batch timing done")
     timing.update(phase_scan_timing(scan, card))
     stamp("scan-family timing done")
-    rows = []
-    for name, (src, replaces, _) in KERNELS.items():
-        p1, k1, k2, p2, where, (bound_ms, bound_by), lib_ms = timing[name]
-        ms, plain_ms = min(k1, k2), min(p1, p2)
-        lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
-        print(f"{name} at {where} [{card}]: kernel {ms * 1e3:.2f} us, "
-              f"plain {plain_ms * 1e3:.2f} us (runs plain, kernel, kernel, "
-              f"plain: {p1 * 1e3:.2f} {k1 * 1e3:.2f} {k2 * 1e3:.2f} "
-              f"{p2 * 1e3:.2f} us); bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by}); library call {lib}", flush=True)
-        rows.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=errs.max[name],
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=lib_ms,
-        ))
+    timing.update(phase_flat_probe_timing(graphs, flat, probes, errs,
+                                         card))
+    stamp("flat-ELL and probe timing done")
+    rows = [
+        dict(name=name, route="cuda", source=src, replaces=replaces,
+             launches=launches[name], max_abs_err=errs.max[name],
+             **timing[name])
+        for name, (src, replaces, _) in KERNELS.items()
+    ]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Masked segment depth over the resident ELL / crossing-matrix indexes,
-// written for Hopper (sm_90a). Three entry points share two device
-// functions:
+// written for Hopper (sm_90a). Four entry points share the mask packing
+// and two device functions:
 //
 //   pollen_ell_tier     one tall tier of ELL slots. Replaces the TPU
 //                       kernel pollen_tpu/kernels/ellscan.py _kernel_tall
@@ -12,8 +12,11 @@
 //   pollen_ell_splitn   up to three tier phases plus the heavy phase in
 //                       ONE launch. Replaces pollen_tpu/kernels/
 //                       ellscan.py _kernel_splitn (K1).
+//   pollen_ell_flat     one tier in the flat (K, N_pad) layout of
+//                       build_ell. Replaces pollen_tpu/kernels/ellscan.py
+//                       _kernel (K9).
 //
-// What bounds them on the H100: all three are integer work with about
+// What bounds them on the H100: all four are integer work with about
 // one multiply-add per byte read, far below the card's compute roofline,
 // so they are bound by memory traffic (and, at the main path's sizes,
 // by launch latency: the whole bench-shape index is ~2 MB and sits in
@@ -31,6 +34,12 @@
 //     line per warp, and each slot word is read exactly once. Output
 //     column (g*SUB + r)*4096 + c is the natural column order, so no
 //     unfold pass is needed.
+//   * Flat tier: one thread per column, its K slot words read down the
+//     column at ell[kk * n_pad + c], so each warp's load is one 128-byte
+//     line and every word is read once; outputs need no reordering. The
+//     TPU gave this layout up because its (1, width) stores pad to 8
+//     sublanes; on the GPU it is coalesced as it stands. Any n_pad works
+//     (the last block masks its ragged edge).
 //   * Heavy function: byte row r holds path 2r in its low nibble and
 //     path 2r+1 in its high nibble (int8 layout: row = path). A block
 //     covers 128 columns; each thread reads 4 columns as one 32-bit
@@ -151,6 +160,27 @@ __global__ void __launch_bounds__(THREADS) cross_kernel(
                 uniq, s_d, s_u);
 }
 
+// Flat tier: column blockIdx.x * THREADS + threadIdx.x of ell[k, n_pad].
+__global__ void __launch_bounds__(THREADS) ell_flat_kernel(
+    const int* __restrict__ ell, int k, long long n_pad, const int* words,
+    int n_words, int* depth, int* uniq) {
+  __shared__ int s_words[MAX_SMEM_WORDS];
+  const int* w = stage_words(s_words, words, n_words, MAX_SMEM_WORDS);
+  const long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (c >= n_pad) return;  // after every thread has staged the mask
+  int d = 0;
+  int u = 0;
+  for (int kk = 0; kk < k; ++kk) {
+    const unsigned v = (unsigned)__ldg(ell + (long long)kk * n_pad + c);
+    // path<<16|count; unsigned shifts, so paths >= 2^15 stay positive.
+    const int bit = mask_bit(w, n_words, (v >> 16) & 0xFFFFu);
+    d += bit * (int)(v & 0xFFFFu);
+    u += bit & (int)(v != 0u);
+  }
+  depth[c] = d;
+  uniq[c] = u;
+}
+
 __global__ void __launch_bounds__(THREADS) ell_splitn_kernel(
     Tier t0, Tier t1, Tier t2, int nt, const uint8_t* heavy, int h_rows,
     int nh_pad, int* dh, int* uh, int sub, int pack16, const int* words,
@@ -240,6 +270,22 @@ int pollen_ell_splitn(int nt,
         t[0], t[1], t[2], nt, static_cast<const uint8_t*>(heavy), h_rows,
         nh_pad, static_cast<int*>(dh), static_cast<int*>(uh), sub, pack16, w,
         n_words);
+  }
+  return (int)cudaGetLastError();
+}
+
+int pollen_ell_flat(const void* ell, int k, long long n_pad,
+                    const void* mask, int elem_bytes, int n_paths,
+                    void* words, int n_words, void* depth, void* uniq,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* w = static_cast<int*>(words);
+  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
+  const long long blocks = (n_pad + THREADS - 1) / THREADS;
+  if (blocks > 0) {
+    ell_flat_kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
+        static_cast<const int*>(ell), k, n_pad, w, n_words,
+        static_cast<int*>(depth), static_cast<int*>(uniq));
   }
   return (int)cudaGetLastError();
 }

@@ -50,6 +50,9 @@ _MASK = (_P, _I, _I, _P, _I)  # mask, elem_bytes, n_paths, words, n_words
 SIGNATURES = {
     "pollen_ell_tier": (_P, _I, _I, _I, _I, *_MASK, _P, _P, _P),
     "pollen_cross_depth": (_P, _I, _I, _I, *_MASK, _P, _P, _P),
+    "pollen_ell_flat": (_P, _I, _L, *_MASK, _P, _P, _P),  # slots, k, n_pad
+    # probes.cu: mode, matrix, rows, n_pad, mask, flags, depth, uniq, stream
+    "pollen_cross_probe": (_I, _P, _I, _I, *_MASK, _P, _P, _P, _P),
     "pollen_ell_splitn": (
         _I,  # number of tiers
         _P, _I, _I, _P, _P,  # tier 0: slots, k, g, depth, uniq

@@ -10,9 +10,11 @@ the tall layout ``tall[(g*K + k)*SUB + r, c]``. The masked query is
 
 Host half: a jax-free port of pollen_tpu/kernels/ellscan.py's planner
 and packers (same constants, same layouts), so the port builds the
-resident index the reference builds. Device half: the wrappers of the
-CUDA kernels in ``csrc/depth.cu`` (one mask) and ``csrc/depth_batch.cu``
-(Q masks in one launch) beside their plain PyTorch versions.
+resident index the reference builds; also the flat ``(K, N_pad)``
+single-tier layout (:func:`build_ell`), which only direct kernel
+callers use. Device half: the wrappers of the CUDA kernels in
+``csrc/depth.cu`` (one mask) and ``csrc/depth_batch.cu`` (Q masks in
+one launch) beside their plain PyTorch versions.
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises.
 """
@@ -46,7 +48,7 @@ SUB = int(os.environ.get("POLLEN_ELL_SUB", "8"))
 TALL_W = 4096
 
 # Launch counts of the CUDA kernels (plain-version calls do not count).
-launches = {"ell_tier": 0, "ell_splitn": 0, "ell_splitn_batch": 0}
+launches = {"ell_tier": 0, "ell_splitn": 0, "ell_splitn_batch": 0, "ell_flat": 0}
 
 
 def c_slot_a(n_words: int = 4) -> float:
@@ -114,6 +116,69 @@ def plan_ell_tiers_n(
         masks.append(t)
         prev = prev | t
     return ks, masks, crossed & ~prev
+
+
+def plan_ell_tiers(runs_per_seg: np.ndarray, big_seg: np.ndarray, p_pad: int):
+    """Two-tier form of :func:`plan_ell_tiers_n`: ``(k1, k2, tier1_mask,
+    tier2_mask, heavy_mask)``, ``k2 == 0`` with an all-false tier 2 when
+    a middle tier does not pay."""
+    ks, masks, heavy = plan_ell_tiers_n(runs_per_seg, big_seg, p_pad, max_tiers=2)
+    empty = np.zeros_like(heavy)
+    if not ks:
+        return 1, 0, empty, empty, heavy
+    if len(ks) == 1:
+        return ks[0], 0, masks[0], empty, heavy
+    return ks[0], ks[1], masks[0], masks[1], heavy
+
+
+def plan_ell(runs_per_seg: np.ndarray, big_seg: np.ndarray, p_pad: int):
+    """``(k, heavy)`` for the flat single-tier layout: K in {1, 2, 4, 8,
+    16} minimizing ``4 K`` bytes per light column plus ``p_pad / 2`` per
+    heavy one; a segment is heavy when its runs overflow K slots or a
+    count overflows 16 bits (``big_seg``)."""
+    best = None
+    for k in (1, 2, 4, 8, 16):
+        heavy = (runs_per_seg > k) | big_seg
+        nh = int(heavy.sum())
+        nl = runs_per_seg.shape[0] - nh
+        nl_pad = -(-max(nl, 1) // LANES) * LANES
+        nh_pad = -(-nh // LANES) * LANES if nh else 0
+        cost = 4 * k * nl_pad + (p_pad // 2) * nh_pad
+        if best is None or cost < best[0]:
+            best = (cost, k, heavy)
+    return best[1], best[2]
+
+
+def build_ell(
+    run_path: np.ndarray,
+    run_count: np.ndarray,
+    run_seg: np.ndarray,
+    num_segments: int,
+    k: int | None = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``(ell, heavy_segs)``: the runs packed into flat int32[K, N_pad]
+    ``path << 16 | count`` slots over ALL segments, heavy columns left
+    empty, and the heavy segments' ids. K from :func:`plan_ell` unless
+    given (P is read as ``run_path.max() + 1``: leave out padding runs).
+    Runs must arrive grouped by segment."""
+    n_pad = -(-max(num_segments, 1) // LANES) * LANES
+    runs_per_seg = np.bincount(run_seg, minlength=num_segments)
+    big_seg = np.zeros(num_segments, bool)
+    big_seg[run_seg[run_count > COUNT_MAX]] = True
+    if k is None:
+        p = int(run_path.max(initial=0)) + 1
+        p_pad = -(-max(p, 1) // LANES) * LANES
+        k, heavy_b = plan_ell(runs_per_seg, big_seg, p_pad)
+    else:
+        heavy_b = (runs_per_seg > k) | big_seg
+    heavy = np.flatnonzero(heavy_b).astype(np.int32)
+    seg_starts = np.concatenate(([0], np.cumsum(runs_per_seg)))
+    slot = np.arange(run_seg.size, dtype=np.int64) - seg_starts[run_seg]
+    keep = ~heavy_b[run_seg]
+    ell = pack_ell(
+        run_path[keep], run_count[keep], run_seg[keep], slot[keep], k, n_pad
+    )
+    return ell, heavy
 
 
 def pack_ell(
@@ -360,6 +425,39 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def masked_ell_depth(
+    ell: torch.Tensor, mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(depth, uniq) int32[N_pad] over the flat int32[K, N_pad] 32-bit
+    slots of :func:`build_ell` (N_pad a multiple of 128); ``mask`` is
+    0/1 per path, paths past its end read 0.
+    CUDA: csrc/depth.cu pollen_ell_flat."""
+    if ell.dtype != torch.int32 or ell.dim() != 2:
+        raise TypeError(f"flat slots must be 2-D int32, got {ell.dtype}")
+    k, n_pad = ell.shape
+    if n_pad % LANES or not ell.is_contiguous():
+        raise ValueError(
+            f"flat slots {tuple(ell.shape)} must be contiguous with a "
+            f"multiple of {LANES} columns"
+        )
+    if ell.device.type == "cpu":
+        return masked_ell_depth_plain(ell, mask)
+    if ell.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ell.device}")
+    mask, elem, n_paths, n_words = kernel_mask(mask, ell.device)
+    depth, uniq, words = alloc_outputs([n_pad, n_pad], n_words, ell.device)
+    _build.check(
+        "pollen_ell_flat",
+        _build.load().pollen_ell_flat(
+            ell.data_ptr(), k, n_pad, mask.data_ptr(), elem, n_paths,
+            words.data_ptr(), n_words, depth.data_ptr(), uniq.data_ptr(),
+            _stream(ell.device),
+        ),
+    )
+    launches["ell_flat"] += 1
+    return depth, uniq
+
+
 def masked_ell_depth_tall(
     tall: torch.Tensor,
     mask: torch.Tensor,
@@ -486,3 +584,29 @@ def masked_ell_splitn_depth_batch(
     launches["ell_splitn_batch"] += 1
     outs = [o.view(q, c) for o, c in zip(outs, cols)]
     return tuple(outs) if has_heavy else (*outs, None, None)
+
+
+# --- the reference's fixed-arity forms of the split queries -------------
+
+
+def masked_ell_split_depth(ell_tall, heavy, mask, k: int):
+    """One tier plus the heavy block: ``(d, u, dh, uh)`` (K1)."""
+    return masked_ell_splitn_depth([ell_tall], heavy, mask, [k])
+
+
+def masked_ell_split3_depth(ell_tall, ell2_tall, heavy, mask, k: int, k2: int):
+    """Two tiers plus the heavy block: ``(d1, u1, d2, u2, dh, uh)`` (K1)."""
+    return masked_ell_splitn_depth([ell_tall, ell2_tall], heavy, mask, [k, k2])
+
+
+def masked_ell_split3_depth_batch(
+    ell_tall, ell2_tall, heavy, masks, k: int, k2: int = 0
+):
+    """Batched one or two tiers plus the heavy block (K4): ``(d1, u1,
+    d2, u2, dh, uh)``, each (Q, columns); absent classes are None."""
+    if ell2_tall.numel() and k2:
+        return masked_ell_splitn_depth_batch(
+            [ell_tall, ell2_tall], heavy, masks, [k, k2]
+        )
+    d1, u1, dh, uh = masked_ell_splitn_depth_batch([ell_tall], heavy, masks, [k])
+    return d1, u1, None, None, dh, uh

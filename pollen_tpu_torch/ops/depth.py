@@ -377,6 +377,12 @@ def _best_masked_impl(dg: TorchGraph) -> str:
     return min(costs, key=costs.get)
 
 
+def _cross_beats_scan(dg: TorchGraph) -> bool:
+    """Whether the dense crossing matrix is the cheapest masked-depth
+    index (the reference's form for callers that predate the ELL)."""
+    return _best_masked_impl(dg) == "cross"
+
+
 def masked_seg_depth(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,7 +2,8 @@
 module of ``pollen_tpu_torch`` and a CLI run load in a fresh interpreter
 with ``jax`` and every ``pollen_tpu`` module absent from
 ``sys.modules`` (the machine with the card has no JAX installed), and
-no import statement of the port or of ``chip_smoke.py`` names them."""
+no import statement of the port or of ``chip_smoke.py`` names them, nor
+the reference's ``bench`` or ``probes`` scripts."""
 
 import ast
 import pathlib
@@ -34,7 +35,8 @@ for argv, golden in (
     cli.main(["--device", "cpu", "-I", sys.argv[1], *argv], stdout=out)
     assert out.getvalue() == open(golden).read(), argv
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "pollen_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "pollen_tpu", "bench",
+                                       "probes"))
 assert not loaded, loaded
 print(len(names))
 """
@@ -58,9 +60,9 @@ def test_port_imports_nothing_of_jax_or_pollen_tpu():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # __main__, cli, device, fileformat, flatgfa, synth, kernels (+7),
-    # ops (+1)
-    assert int(proc.stdout.strip()) >= 15
+    # __main__, cli, device, fileformat, flatgfa, synth, kernels (+8),
+    # ops (+1), probes (+3)
+    assert int(proc.stdout.strip()) >= 20
 
 
 SOURCES = sorted((REPO / "pollen_tpu_torch").rglob("*.py")) + [
@@ -73,6 +75,7 @@ SOURCES = sorted((REPO / "pollen_tpu_torch").rglob("*.py")) + [
 )
 def test_no_import_statement_names_jax_or_pollen_tpu(path):
     """Imports inside functions count too (they run only on the card)."""
+    banned = ("jax", "jaxlib", "pollen_tpu", "bench", "probes")
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             mods = [a.name for a in node.names]
@@ -81,6 +84,6 @@ def test_no_import_statement_names_jax_or_pollen_tpu(path):
         else:
             continue
         for mod in mods:
-            assert mod.split(".")[0] not in ("jax", "jaxlib", "pollen_tpu"), (
+            assert mod.split(".")[0] not in banned, (
                 f"{path.name}:{node.lineno} imports {mod}"
             )
