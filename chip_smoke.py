@@ -13,7 +13,11 @@ and then:
    in both layouts and depth-only, tall tier K3 with pack16 and 32-bit
    slots (4 seeded masks each); the batched split ELL K4 on 1-3 tiers,
    with and without a heavy block, and the batched crossing matrix K5
-   in both layouts, at Q = 1, 5, 32 and 40 seeded masks;
+   in both layouts, at Q = 1, 5, 32 and 40 seeded masks; K5 also with
+   every cell at its clip under all-ones masks, at P = 2 to 300 paths,
+   Q = 1, 5, 16, 17, 32, 40, and on a matrix 4 bytes off a 16-byte
+   boundary (and at full size on bench's matrix under a seeded Q = 32
+   batch, before its timing);
 2. drives the main paths through the user's entry points: ``fgfa-torch
    --device cuda depth -d``, ``depth -d -s`` and ``depth -d -S`` on
    every fixture, byte for byte against the goldens, and a ``serve``
@@ -30,7 +34,9 @@ The scan family (graphs past the ELL and crossing-matrix budgets) is
 checked the same way: segment scan K6, boundary gather K7 and run scan
 K8 against their plain versions on the fixtures and on seeded cases of
 1-3 scan blocks at 60 to 2^17 + 300 paths, a group across three blocks
-and a head carry (phase 1); ``depth -d -s`` (route "scan") and
+and a head carry, and K6's single pass at 2^25 steps (one group; a
+group start every 7 steps; 20 back-to-back calls; two replays of a
+captured CUDA graph) (phase 1); ``depth -d -s`` (route "scan") and
 ``depth -d -S`` (route "runs") goldens and a ``serve`` request of each
 under POLLEN_CROSS_BUDGET_MB=0 (phase 2); and two synthetic graphs,
 wide_p2e17 (2^17 paths, route "scan") and bench_runs (route "runs"),
@@ -54,7 +60,9 @@ ELL path; the probe path) and read right after it: every kernel must
 have been launched by its path. Each kernel's time is its CUDA-event
 wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
-wall, its bound and its library call (wall and replay). Exits nonzero
+wall, its bound and its library call (wall and replay): one PyTorch
+call of the same function (K2, K5: a product by [A | min(A, 1)]; K6,
+K8: two cumsums), where there is one. Exits nonzero
 at the first failed check. The line before the last is one JSON object
 with each kernel's launches, error, times, bound and library call
 times; the last is ``{"ok": true, "device": {...}}``.
@@ -120,6 +128,8 @@ PROBE_PATH = ("cross_probe_raw (K10)", "cross_probe_vd (K10)",
 # the batch timing.
 KERNEL_QS = (1, 5, 32, 40)
 TIMING_QS = (1, 8, 16, 32)
+# K5's edge batches: 16 fills one tensor-core row tile, 17 spills over.
+CROSS_QS = (1, 5, 16, 17, 32, 40)
 # Synthetic graphs of phase 3: (steps, segments, paths), seed 8.
 SCALE = {
     "bench": (2**22, 2**18, 128),
@@ -451,6 +461,76 @@ def phase_kernels(errs: Errors):
           "counts)", flush=True)
 
 
+def phase_kernels_cross_batch(errs: Errors):
+    """Phase 1 (K5's edges): every cell at its clip (15 nibble, 127
+    int8) under all-ones masks, whose sums are known; int8 matrices of
+    P = 2, 30, 33, 300 paths and nibble matrices of 2, 30, 66, 300 (the
+    tensor-core K step is 32 paths, so all but one pad K with zeros);
+    Q = 1, 5, 16, 17, 32, 40 (16: one mma row tile, 17: one over, 40:
+    two query chunks); and a matrix that starts 4 bytes past a 16-byte
+    boundary (4-byte copies into shared memory). Tolerance 0."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import crossmat as cm
+
+    rng = np.random.default_rng(5)
+    n_pad = 1024
+    for nib, clip in ((True, cm.CLIP_NIBBLE), (False, cm.CLIP)):
+        rows = 150 if nib else 300
+        p = 2 * rows if nib else rows
+        a = torch.full((rows, n_pad), 0xFF if nib else clip,
+                       dtype=torch.uint8 if nib else torch.int8, device="cuda")
+        for q in CROSS_QS:
+            ones = torch.ones((q, p), dtype=torch.int32, device="cuda")
+            d, u = cm.batched_cross_depth(a, ones, nibble=nib)
+            errs.compare("cross_batch (K5)", (d, u),
+                         cm.batched_cross_depth_plain(a, ones, nibble=nib),
+                         f"every cell {clip}, nibble={nib}, Q={q}")
+            need(bool((d == clip * p).all()) and bool((u == p).all()),
+                 f"every cell {clip}, nibble={nib}, Q={q}: depth "
+                 f"{int(d.max())}, uniq {int(u.max())}")
+    for nib, paths in ((False, (2, 30, 33, 300)), (True, (2, 30, 66, 300))):
+        for p in paths:
+            rows = -(-p // 2) if nib else p
+            if nib:
+                a = rng.integers(0, 256, (rows, n_pad)).astype(np.uint8)
+            else:
+                a = rng.integers(0, cm.CLIP + 1, (rows, n_pad)).astype(np.int8)
+            a[rng.random(a.shape) < 0.3] = 0
+            a = torch.from_numpy(a).cuda()
+            for q in CROSS_QS:
+                ms = torch.from_numpy(
+                    rng.random((q, p)) < rng.random((q, 1))
+                ).cuda()
+                errs.compare(
+                    "cross_batch (K5)", cm.batched_cross_depth(a, ms, nibble=nib),
+                    cm.batched_cross_depth_plain(
+                        a, cm.pad_mask(ms, 2 * rows if nib else rows), nibble=nib
+                    ),
+                    f"P={p} nibble={nib} Q={q}",
+                )
+    for nib in (True, False):
+        rows = 33
+        flat = torch.from_numpy(
+            rng.integers(0, 16 if nib else cm.CLIP + 1, rows * n_pad + 4)
+            .astype(np.uint8 if nib else np.int8)
+        ).cuda()
+        a = flat[4:].view(rows, n_pad)
+        need(a.data_ptr() % 16 == 4, "expected a matrix 4 bytes off 16")
+        p = 2 * rows if nib else rows
+        ms = torch.from_numpy(rng.random((17, p)) < 0.5).cuda()
+        errs.compare("cross_batch (K5)", cm.batched_cross_depth(a, ms, nibble=nib),
+                     cm.batched_cross_depth_plain(a, ms, nibble=nib),
+                     f"matrix 4 bytes off 16, nibble={nib}")
+    torch.cuda.synchronize()
+    print("phase 1 (K5): every cell at the clip (15, 127) under all-ones "
+          "masks gives 15 P and 127 P exactly; int8 P = 2, 30, 33, 300 and "
+          "nibble P = 2, 30, 66, 300; a matrix 4 bytes off a 16-byte "
+          f"boundary; Q = {', '.join(map(str, CROSS_QS))}; all equal plain "
+          "(tolerance 0)", flush=True)
+
+
 def run_cli(argv, stdin_text=""):
     from pollen_tpu_torch import cli
 
@@ -750,8 +830,9 @@ def phase_batch_timing(batch: dict, card: str):
                   flush=True)
 
 
-def phase_timing(graphs: dict, batch: dict, card: str) -> dict:
-    """Phase 3 (timing): one query and each kernel, kernel vs plain."""
+def phase_timing(graphs: dict, batch: dict, errs: Errors, card: str) -> dict:
+    """Phase 3 (timing): one query and each kernel, kernel vs plain (K5
+    first held against plain at full size under a seeded batch)."""
     import numpy as np
     import torch
 
@@ -805,9 +886,9 @@ def phase_timing(graphs: dict, batch: dict, card: str) -> dict:
                       device="cuda")
     mpu[: dgu.num_paths] = mu.to(torch.int32)
     hu = dgu.ell_heavy
-    # The nearest one-call form of K2: a float32 product of the folded
-    # mask against a copy of A unpacked ahead of time (depth only).
-    au = cm.unpack_cross(hu).float()
+    # K2's one-call form: a float32 product of the folded mask by
+    # [A | min(A, 1)], unpacked ahead of time (depth and uniq).
+    au = both_products(cm.unpack_cross(hu)).float()
     fmu = cm.fold_mask(mpu).float()[None]
     times["cross (K2)"] = (
         lambda: cm.masked_cross_depth(hu, mu, nibble=True),
@@ -842,19 +923,59 @@ def phase_timing(graphs: dict, batch: dict, card: str) -> dict:
     )
     dgc = batch["bench_cross"][1]
     nib = dgc.cross_nibble
-    mpc = cm.pad_mask(m32, dgc.cross_matrix.shape[0] * (2 if nib else 1))
     ac = dgc.cross_matrix
-    a_c = (cm.unpack_cross(ac) if nib else ac.to(torch.int32)).float()
-    fm32 = (cm.fold_mask(mpc) if nib else mpc).float()
+    p_c = ac.shape[0] * (2 if nib else 1)
+    # A full-size check under a seeded random Q = 32 batch, outside the
+    # timed calls.
+    m_rand = torch.from_numpy(
+        rng.random((32, dgc.num_paths)) < rng.random((32, 1))
+    ).cuda()
+    errs.compare("cross_batch (K5)", cm.batched_cross_depth(ac, m_rand, nibble=nib),
+                 cm.batched_cross_depth_plain(ac, cm.pad_mask(m_rand, p_c),
+                                              nibble=nib),
+                 f"bench crossing matrix {tuple(ac.shape)}, seeded Q=32")
+    mpc = cm.pad_mask(m32, p_c)
+    # K5's one-call form: torch._int_mm of the folded int8 masks by the
+    # int8 [A | min(A, 1)], both built ahead of time (float32
+    # torch.matmul over the same where this build's _int_mm refuses).
+    a_both = both_products(cm.unpack_cross(ac) if nib else ac.to(torch.int32))
+    fm8 = (cm.fold_mask(mpc) if nib else mpc).to(torch.int8)
+    library, lib_form = int_mm_or_matmul(fm8, a_both.to(torch.int8))
+    print(f"K5's library call: {lib_form}", flush=True)
     times["cross_batch (K5)"] = (
         lambda: cm.batched_cross_depth(ac, m32, nibble=nib),
         lambda: cm.batched_cross_depth_plain(ac, mpc, nibble=nib),
         f"bench crossing matrix {tuple(ac.shape)}, Q=32",
         bound(ac.numel() + 32 * dgc.num_paths + 8 * 32 * ac.shape[1],
               tensor_ops=4 * 32 * ac.numel() * (2 if nib else 1)),
-        lambda: torch.matmul(fm32, a_c),
+        library,
     )
     return time_kernels(times, card)
+
+
+def both_products(a):
+    """[A | min(A, 1)] along the columns: one product by it gives depth
+    and uniq, what K2 and K5 compute."""
+    import torch
+
+    return torch.cat([a, torch.clamp(a, max=1)], dim=1)
+
+
+def int_mm_or_matmul(m8, a8):
+    """(one-call product, its name): torch._int_mm(m8, a8) if this
+    build takes the shape, else float32 torch.matmul of the same."""
+    import torch
+
+    try:
+        torch._int_mm(m8, a8)
+        torch.cuda.synchronize()
+        return (lambda: torch._int_mm(m8, a8)), "torch._int_mm, int8 x int8 -> int32"
+    except RuntimeError as exc:
+        mf, af = m8.float(), a8.float()
+        reason = str(exc).splitlines()[0][:120]
+        return (lambda: torch.matmul(mf, af)), (
+            f"float32 torch.matmul (torch._int_mm refused: {reason})"
+        )
 
 
 def time_kernels(times: dict, card: str) -> dict:
@@ -997,11 +1118,69 @@ def phase_kernels_scan(errs: Errors):
             mk = (rng.random(8) < 0.5).astype(np.int32)
             mk[3] = 1
             seg(cuda(ids), cuda(rs), None, cuda(mk), f"head carry {hc}", hc)
+    check_seg_scan_lookback(errs)
     torch.cuda.synchronize()
     print("phase 1 (scan family): K6, K7, K8 equal their plain versions on "
           f"8 fixtures and P = {', '.join(map(str, SCAN_PS))} (1-3 scan "
           "blocks), a group across three blocks and of 2^23 steps, head "
-          "carry 0-2; 4 masks each (tolerance 0: exact int32)", flush=True)
+          "carry 0-2; 4 masks each; K6's look-back on 2^25 steps (one "
+          "group, and a group start every 7 steps), 20 back-to-back calls "
+          "and two replays of a captured CUDA graph (tolerance 0: exact "
+          "int32)", flush=True)
+
+
+def check_seg_scan_lookback(errs: Errors):
+    """K6's single pass at 2^25 steps: one group under the all-ones mask
+    (no partition starts a group, so a look-back walks across many
+    predecessors' aggregates), and a group start every 7 steps, each
+    with head carry 0 and 2; then 20 back-to-back calls on one input and
+    two replays of a CUDA graph that captured one call (the ticket
+    counter and look-back descriptors reset inside it), each equal to
+    plain."""
+    import torch
+
+    from pollen_tpu_torch.kernels import segscan
+
+    n = 2**25
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    # Both leading groups began to the left (negative run_start), so the
+    # head carry decides whether their first selected step counts here.
+    cases = (
+        ("one group of 2^25 steps", torch.zeros_like(pos),
+         torch.full_like(pos, -5),
+         torch.ones(1, dtype=torch.int32, device="cuda")),
+        ("a group start every 7 steps", (pos + 3) // 7 % 5,
+         pos - (pos + 3) % 7,
+         torch.tensor([1, 0, 1, 1, 0], dtype=torch.int32, device="cuda")),
+    )
+    for what, path, rs, m in cases:
+        for hc in (0, 2):
+            errs.compare("seg_scan (K6)",
+                         segscan.masked_depth_cumsums(path, rs, m, hc),
+                         segscan.masked_depth_cumsums_plain(path, rs, m, hc),
+                         f"{what}, head carry {hc}")
+    _, path, rs, m = cases[1]
+    want = segscan.masked_depth_cumsums_plain(path, rs, m)
+    outs = [segscan.masked_depth_cumsums(path, rs, m) for _ in range(20)]
+    for i, got in enumerate(outs):
+        errs.compare("seg_scan (K6)", got, want, f"back-to-back call {i}")
+    del outs
+    fn = functools.partial(segscan.masked_depth_cumsums, path, rs, m)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    for i in range(2):
+        for c in got:
+            c.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        errs.compare("seg_scan (K6)", got, want, f"CUDA graph replay {i}")
+    del graph, got
 
 
 def phase_goldens_scan(tmp: pathlib.Path):
@@ -1172,13 +1351,21 @@ def phase_scan_timing(scan: dict, card: str) -> dict:
     mw = torch.from_numpy(rng.random(dgw.num_paths) < 0.5).cuda()
     path, rs = dgw.step_path_sorted, dgw.run_start
     n = path.shape[0]
-    ones = torch.ones(n, dtype=torch.int32, device="cuda")
+    # The one-call form of K6 and K8: two int32 cumsums in one call.
+    ones = torch.ones((2, n), dtype=torch.int32, device="cuda")
+    k6 = functools.partial(segscan.masked_depth_cumsums, path, rs, mw)
+    prof = device_profile(k6, reps=5)
+    print(f"seg_scan (K6) call at wide_p2e17: {describe_profile(prof)}",
+          flush=True)
+    need(not prof or ("scan_single" in prof and not any(
+        k in prof for k in ("scan_reduce", "scan_totals", "scan_down"))),
+         f"K6 is not one single-pass launch: {sorted(prof)}")
     times["seg_scan (K6)"] = (
-        lambda: segscan.masked_depth_cumsums(path, rs, mw),
+        k6,
         lambda: segscan.masked_depth_cumsums_plain(path, rs, mw),
         f"wide_p2e17, {n} padded steps",
         bound(16 * n + dgw.num_paths, core_ops=6 * n),
-        lambda: torch.cumsum(ones, 0, dtype=torch.int32),
+        lambda: torch.cumsum(ones, 1, dtype=torch.int32),
     )
     csums = segscan.masked_depth_cumsums(path, rs, mw)
     nb = dgw.seg_bounds.shape[0]
@@ -1192,13 +1379,13 @@ def phase_scan_timing(scan: dict, card: str) -> dict:
     _, dgr, _ = scan["bench_runs"]
     mr = torch.from_numpy(rng.random(dgr.num_paths) < 0.5).cuda()
     r = dgr.run_path.shape[0]
-    ones_r = torch.ones(r, dtype=torch.int32, device="cuda")
+    ones_r = torch.ones((2, r), dtype=torch.int32, device="cuda")
     times["run_scan (K8)"] = (
         lambda: runscan.masked_run_cumsums(dgr.run_path, dgr.run_count, mr),
         lambda: runscan.masked_run_cumsums_plain(dgr.run_path, dgr.run_count, mr),
         f"bench_runs, {r} padded runs",
         bound(16 * r + dgr.num_paths, core_ops=4 * r),
-        lambda: torch.cumsum(ones_r, 0, dtype=torch.int32),
+        lambda: torch.cumsum(ones_r, 1, dtype=torch.int32),
     )
     return time_kernels(times, card)
 
@@ -1543,6 +1730,7 @@ def main() -> int:
 
     errs = Errors()
     phase_kernels(errs)
+    phase_kernels_cross_batch(errs)
     phase_kernels_scan(errs)
     phase_kernels_flat_probes(errs)
     stamp("phase 1 done")
@@ -1585,7 +1773,7 @@ def main() -> int:
             need(launches[name] > 0,
                  f"{name} was never launched by its main path")
 
-    timing = phase_timing(graphs, batch, card)
+    timing = phase_timing(graphs, batch, errs, card)
     stamp("single-query and kernel timing done")
     phase_batch_timing(batch, card)
     stamp("batch timing done")

@@ -76,15 +76,20 @@ void pack_mask(const void* mask, int elem_bytes, int n_paths, int rows,
 }
 
 // ---------------------------------------------------------------------
-// Scan template (scan.cu): an inclusive scan of an associative, not
+// Scan templates (scan.cu): an inclusive scan of an associative, not
 // necessarily commutative, operator over n elements, each made from two
 // int32 inputs (x[i], y[i]) and its position, writing two int32 outputs
-// per element. Three launches, no spin-waits:
+// per element. Two forms over the same Op:
 //
-//   scan_reduce  one aggregate per block (blocks of `tpb` tiles);
-//   scan_totals  one block turns those into exclusive block prefixes;
-//   scan_down    each block rescans its tiles from its prefix and
-//                writes the outputs.
+//   launch_scan_single  one launch, each input read once: persistent
+//                       blocks take partitions in ticket order and find
+//                       each one's prefix by a decoupled look-back (K6).
+//   launch_scan         three launches, no spin-waits, inputs read
+//                       twice (K8):
+//     scan_reduce  one aggregate per block (blocks of `tpb` tiles);
+//     scan_totals  one block turns those into exclusive block prefixes;
+//     scan_down    each block rescans its tiles from its prefix and
+//                  writes the outputs.
 //
 // A thread takes SCAN_ITEMS consecutive elements (16-byte loads and
 // stores where aligned), composes them in order, and a block-wide
@@ -94,6 +99,9 @@ void pack_mask(const void* mask, int elem_bytes, int n_paths, int rows,
 //   static Agg identity();  static Agg combine(Agg a, Agg b);
 //   Agg element(long long i, int x, int y, const int* words) const;
 //   void emit(const Agg& prefix, int* o0, int* o1) const;  // inclusive
+//   static int4 to_desc(const Agg& a, int flag);   // single pass only:
+//   static int from_desc(const int4& d, Agg& a);   // flag 1 or 2 and Agg
+//                                                  // in 16 bytes
 // and the members x, y, out0, out1, n, words, n_words.
 // ---------------------------------------------------------------------
 
@@ -235,6 +243,43 @@ __global__ void __launch_bounds__(TOTALS_THREADS) scan_totals(
   }
 }
 
+// Writes the outputs of the thread's items of the tile at `base`; `p`
+// is the exclusive prefix of its first item.
+template <class Op>
+__device__ __forceinline__ void emit_items(const Op& op, long long base,
+                                           const int (&x)[SCAN_ITEMS],
+                                           const int (&y)[SCAN_ITEMS],
+                                           const int* w,
+                                           typename Op::Agg p) {
+  const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+  int o0[SCAN_ITEMS], o1[SCAN_ITEMS];
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    if (i0 + j < op.n) p = Op::combine(p, op.element(i0 + j, x[j], y[j], w));
+    op.emit(p, &o0[j], &o1[j]);
+  }
+  const bool vec = i0 + SCAN_ITEMS <= op.n &&
+                   ((reinterpret_cast<uintptr_t>(op.out0) |
+                     reinterpret_cast<uintptr_t>(op.out1)) & 15u) == 0;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; j += 4) {
+      *reinterpret_cast<int4*>(op.out0 + i0 + j) =
+          make_int4(o0[j], o0[j + 1], o0[j + 2], o0[j + 3]);
+      *reinterpret_cast<int4*>(op.out1 + i0 + j) =
+          make_int4(o1[j], o1[j + 1], o1[j + 2], o1[j + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      if (i0 + j < op.n) {
+        op.out0[i0 + j] = o0[j];
+        op.out1[i0 + j] = o1[j];
+      }
+    }
+  }
+}
+
 template <class Op>
 __global__ void __launch_bounds__(THREADS) scan_down(
     Op op, int tpb, const typename Op::Agg* block_prefix) {
@@ -251,34 +296,7 @@ __global__ void __launch_bounds__(THREADS) scan_down(
     Agg total;
     const Agg excl = block_exclusive_scan<Op>(
         thread_aggregate(op, base, x, y, w), s_tot, &total);
-    Agg p = Op::combine(carry, excl);
-    const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
-    int o0[SCAN_ITEMS], o1[SCAN_ITEMS];
-#pragma unroll
-    for (int j = 0; j < SCAN_ITEMS; ++j) {
-      if (i0 + j < op.n) p = Op::combine(p, op.element(i0 + j, x[j], y[j], w));
-      op.emit(p, &o0[j], &o1[j]);
-    }
-    const bool vec = i0 + SCAN_ITEMS <= op.n &&
-                     ((reinterpret_cast<uintptr_t>(op.out0) |
-                       reinterpret_cast<uintptr_t>(op.out1)) & 15u) == 0;
-    if (vec) {
-#pragma unroll
-      for (int j = 0; j < SCAN_ITEMS; j += 4) {
-        *reinterpret_cast<int4*>(op.out0 + i0 + j) =
-            make_int4(o0[j], o0[j + 1], o0[j + 2], o0[j + 3]);
-        *reinterpret_cast<int4*>(op.out1 + i0 + j) =
-            make_int4(o1[j], o1[j + 1], o1[j + 2], o1[j + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < SCAN_ITEMS; ++j) {
-        if (i0 + j < op.n) {
-          op.out0[i0 + j] = o0[j];
-          op.out1[i0 + j] = o1[j];
-        }
-      }
-    }
+    emit_items(op, base, x, y, w, Op::combine(carry, excl));
     carry = Op::combine(carry, total);
   }
 }
@@ -299,6 +317,171 @@ void launch_scan(const Op& op, int tpb, typename Op::Agg* block_aggs,
   scan_reduce<Op><<<nb, THREADS, 0, stream>>>(op, tpb, block_aggs);
   scan_totals<Op><<<1, TOTALS_THREADS, 0, stream>>>(block_aggs, nb);
   scan_down<Op><<<nb, THREADS, 0, stream>>>(op, tpb, block_aggs);
+}
+
+// ---------------------------------------------------------------------
+// Single-pass scan with decoupled look-back (Merrill & Garland, "Single-
+// pass Parallel Prefix Scan with Decoupled Look-back", 2016). Each turn
+// a persistent block takes the next partition (one tile, SCAN_TILE
+// elements) from a global counter (atomicAdd), scans it, and publishes
+// its aggregate (FLAG_AGG) and then its inclusive prefix (FLAG_PREFIX).
+// Its exclusive prefix comes from the predecessors: one warp reads 32
+// descriptors at a time, waits until each is set, and combines them from
+// the nearest inclusive prefix on, in order (the operator need not
+// commute). A block waits only on lower tickets, which blocks already
+// running hold, so the scan cannot deadlock whatever the scheduler does;
+// the grid size changes speed, never the answer.
+//
+// A descriptor is 16 bytes that hold the flag and the aggregate together
+// (Op::to_desc / Op::from_desc), stored and loaded as one 16-byte access
+// (st/ld.relaxed.gpu.v4, as CUB's tile descriptors), so a reader never
+// sees a flag without its payload and neither side needs a fence. A
+// release store or an acquire fence would wait for the warp's
+// outstanding stores, three times a partition, on the look-back's path.
+//
+// Scratch of n elements (single_scan_scratch_bytes): the ticket counter
+// (16 bytes), then one descriptor a partition. The launch zeroes it with
+// cudaMemsetAsync on its own stream (flag 0: not ready), so every call,
+// and every replay of a captured CUDA graph, starts from a reset.
+// ---------------------------------------------------------------------
+
+// Blocks an SM holds (at most 48 registers a thread): partitions in
+// flight hide the look-back's waits.
+constexpr int SINGLE_MIN_BLOCKS = 5;
+constexpr int FLAG_AGG = 1;
+constexpr int FLAG_PREFIX = 2;
+constexpr long long SCAN_HEADER_BYTES = 16;
+
+inline long long single_scan_parts(long long n) {
+  return (n + SCAN_TILE - 1) / SCAN_TILE;
+}
+
+inline long long single_scan_scratch_bytes(long long n) {
+  return SCAN_HEADER_BYTES + single_scan_parts(n) * (long long)sizeof(int4);
+}
+
+__device__ __forceinline__ void st_desc(int4* p, int4 v) {
+  asm volatile("st.relaxed.gpu.global.v4.b32 [%0], {%1, %2, %3, %4};\n" ::
+                   "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ int4 ld_desc(const int4* p) {
+  int4 v;
+  asm volatile("ld.relaxed.gpu.global.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Lane + d's aggregate (d > 0), or lane 0's (d == 0).
+template <class T>
+__device__ __forceinline__ T shfl_down_agg(const T& v, int d) {
+  T out;
+  const int* p = reinterpret_cast<const int*>(&v);
+  int* q = reinterpret_cast<int*>(&out);
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(T) / 4); ++k) {
+    q[k] = d ? __shfl_down_sync(0xFFFFFFFFu, p[k], d)
+             : __shfl_sync(0xFFFFFFFFu, p[k], 0);
+  }
+  return out;
+}
+
+// Publishes partition `part`'s aggregate and returns its exclusive
+// prefix (in every lane). Called by one whole warp, part >= 1.
+template <class Op>
+__device__ typename Op::Agg look_back(int part, const typename Op::Agg& total,
+                                      int4* desc) {
+  using Agg = typename Op::Agg;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) st_desc(desc + part, Op::to_desc(total, FLAG_AGG));
+  Agg run = Op::identity();  // the predecessors combined so far
+  for (int end = part;; end -= 32) {
+    // Lane l reads predecessor end - 1 - l: lower lanes come later.
+    const int p = end - 1 - lane;
+    Agg v = Op::identity();
+    int flag = p < 0 ? FLAG_PREFIX : 0;
+    while (__any_sync(0xFFFFFFFFu, flag == 0)) {
+      if (flag == 0) flag = Op::from_desc(ld_desc(desc + p), v);
+    }
+    const unsigned pre = __ballot_sync(0xFFFFFFFFu, flag == FLAG_PREFIX);
+    const int stop = pre ? __ffs(pre) - 1 : 31;  // nearest inclusive prefix
+    if (lane > stop) v = Op::identity();
+    // Lane 0 gets v[stop] + ... + v[0], the window in sequence order.
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Agg o = shfl_down_agg(v, d);
+      if (lane + d < 32) v = Op::combine(o, v);
+    }
+    run = Op::combine(shfl_down_agg(v, 0), run);
+    if (pre) return run;  // partition 0 is always FLAG_PREFIX
+  }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(THREADS, SINGLE_MIN_BLOCKS)
+    scan_single(Op op, int parts, int* counter, int4* desc) {
+  using Agg = typename Op::Agg;
+  __shared__ int s_words[SCAN_SMEM_WORDS];
+  __shared__ Agg s_tot[33];
+  __shared__ Agg s_prefix;
+  __shared__ int s_part;
+  const int* w = stage_words(s_words, op.words, op.n_words, SCAN_SMEM_WORDS);
+  // A ticket is taken only when the block can start on it: a ticket held
+  // while its block finishes another partition stalls every later one.
+  for (;;) {
+    if (threadIdx.x == 0) s_part = atomicAdd(counter, 1);
+    __syncthreads();
+    const int part = s_part;
+    if (part >= parts) break;  // block-uniform
+    const long long base = (long long)part * SCAN_TILE;
+    int x[SCAN_ITEMS], y[SCAN_ITEMS];
+    load_items(op, base, x, y);
+    Agg total;
+    const Agg excl = block_exclusive_scan<Op>(
+        thread_aggregate(op, base, x, y, w), s_tot, &total);
+    if (threadIdx.x < 32) {
+      const Agg prefix =
+          part == 0 ? Op::identity() : look_back<Op>(part, total, desc);
+      if (threadIdx.x == 0) {
+        st_desc(desc + part, Op::to_desc(Op::combine(prefix, total),
+                                         FLAG_PREFIX));
+        s_prefix = prefix;
+      }
+    }
+    __syncthreads();
+    emit_items(op, base, x, y, w, Op::combine(s_prefix, excl));
+  }
+}
+
+// The one launch of a single-pass scan (after the caller's pack_mask),
+// the reset of its scratch ahead of it on the same stream.
+template <class Op>
+cudaError_t launch_scan_single(const Op& op, void* scratch,
+                               cudaStream_t stream) {
+  const long long parts = single_scan_parts(op.n);
+  if (parts <= 0) return cudaSuccess;
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, single_scan_scratch_bytes(op.n), stream);
+  if (err != cudaSuccess) return err;
+  // Blocks resident on the card at once, found on the first call (before
+  // any graph capture). Any count gives the same answer.
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_single<Op>,
+                                                  THREADS, 0);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  char* base = static_cast<char*>(scratch);
+  scan_single<Op><<<(int)(parts < resident ? parts : resident), THREADS, 0,
+                    stream>>>(op, (int)parts, reinterpret_cast<int*>(base),
+                              reinterpret_cast<int4*>(base + SCAN_HEADER_BYTES));
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -21,11 +21,20 @@
 // write 8 B per element, with a few integer operations each; K7 reads
 // its bounds and gathers two values per bound. Design:
 //
-//   * The scans are the three-launch reduce / scan-of-totals / downsweep
-//     of common.cuh, on an associative operator, so no block ever waits
-//     on another (no decoupled look-back spin). The inputs are read
-//     twice (24 B per element in all, against the 16 B minimum); a
-//     single-pass form is later work.
+//   * K6 is common.cuh's single-pass scan: one launch after the mask
+//     packing, each input read once with 16-byte loads and each output
+//     written once (16 B per element, the minimum). Persistent blocks
+//     take 2048-element partitions in ticket order; a partition's
+//     prefix crosses blocks through a decoupled look-back over the
+//     SegAgg aggregates below, each packed with its flag into one
+//     16-byte descriptor (to_desc), so publishing and reading need no
+//     fence. The scratch's counter and descriptors are zeroed on the
+//     caller's stream ahead of the launch, so a replayed CUDA graph
+//     resets too.
+//   * K8 still runs the three-launch reduce / scan-of-totals / downsweep
+//     of common.cuh (no spin-waits; inputs read twice, 24 B per element
+//     against the 16 B minimum). Its Op is the same kind as K6's, so
+//     moving it to launch_scan_single is a one-line change.
 //   * The mask is packed into bit words by the launch ahead of the scan
 //     and staged in shared memory (16 KB at 2^17 paths), so a lookup is
 //     one shift; past 2^17 paths the words are read from global memory.
@@ -96,6 +105,18 @@ struct SegScanOp {
     *o0 = p.sw;
     *o1 = p.lf - (int)(head_carry > 0 && p.l > 0);
   }
+  // Look-back descriptor: every count lies in [0, n] with n < 2^31, so
+  // each takes 31 bits and the top bits hold hs and the 2-bit flag.
+  static __device__ __forceinline__ int4 to_desc(const Agg& a, int flag) {
+    return make_int4((int)((unsigned)a.sw | (unsigned)a.hs << 31),
+                     (int)((unsigned)a.t | ((unsigned)flag & 1u) << 31),
+                     (int)((unsigned)a.l | ((unsigned)flag >> 1) << 31), a.lf);
+  }
+  static __device__ __forceinline__ int from_desc(const int4& d, Agg& a) {
+    a = {d.x & 0x7FFFFFFF, (int)((unsigned)d.x >> 31), d.y & 0x7FFFFFFF,
+         d.z & 0x7FFFFFFF, d.w};
+    return (int)((unsigned)d.y >> 31 | ((unsigned)d.z >> 31) << 1);
+  }
 };
 
 // K8: two plain sums.
@@ -127,6 +148,15 @@ struct RunScanOp {
     *o0 = p.wc;
     *o1 = p.w;
   }
+  // Look-back descriptor (for launch_scan_single): the sums, then the
+  // flag.
+  static __device__ __forceinline__ int4 to_desc(const Agg& a, int flag) {
+    return make_int4(a.wc, a.w, flag, 0);
+  }
+  static __device__ __forceinline__ int from_desc(const int4& d, Agg& a) {
+    a = {d.x, d.y};
+    return d.z;
+  }
 };
 
 __device__ __forceinline__ int exclusive_at(const int* c, long long len,
@@ -152,18 +182,19 @@ __global__ void __launch_bounds__(THREADS) boundary_diff_kernel(
 
 extern "C" {
 
-// Bytes of block-aggregate scratch a scan of n elements at `tpb` tiles
-// per block needs (kind 0: pollen_seg_scan, 1: pollen_run_scan).
+// Bytes of scratch a scan of n elements needs: kind 0, pollen_seg_scan
+// (the single-pass layout: the ticket counter and one descriptor a
+// partition; `tpb` unused); kind 1, pollen_run_scan (one aggregate per
+// block at `tpb` tiles per block).
 long long pollen_scan_scratch_bytes(int kind, long long n, int tpb) {
-  const long long nb = scan_blocks(n, tpb);
-  return nb * (long long)(kind == 0 ? sizeof(SegAgg) : sizeof(RunAgg));
+  if (kind == 0) return single_scan_scratch_bytes(n);
+  return scan_blocks(n, tpb) * (long long)sizeof(RunAgg);
 }
 
 int pollen_seg_scan(const void* path, const void* run_start, long long n,
                     int head_carry, const void* mask, int elem_bytes,
-                    int n_paths, void* words, int n_words, int tpb,
-                    void* scratch, void* csum_w, void* csum_first,
-                    void* stream) {
+                    int n_paths, void* words, int n_words, void* scratch,
+                    void* csum_w, void* csum_first, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* w = static_cast<int*>(words);
   pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
@@ -175,8 +206,8 @@ int pollen_seg_scan(const void* path, const void* run_start, long long n,
                w,
                n_words,
                head_carry};
-  launch_scan(op, tpb, static_cast<SegAgg*>(scratch), st);
-  return (int)cudaGetLastError();
+  const cudaError_t err = launch_scan_single(op, scratch, st);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int pollen_run_scan(const void* run_path, const void* run_count, long long n,

@@ -84,7 +84,7 @@ SIGNATURES = {
     "pollen_seg_scan": (
         _P, _P, _L, _I,  # path, run_start, n, head_carry
         *_MASK,
-        _I, _P, _P, _P, _P,  # tiles per block, scratch, csum_w, csum_first, stream
+        _P, _P, _P, _P,  # scratch, csum_w, csum_first, stream
     ),
     "pollen_run_scan": (
         _P, _P, _L,  # run_path, run_count, n

@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .segscan import check_scan_inputs, lookup_mask, scan_scratch
+from .segscan import check_scan_inputs, lookup_mask, scan_scratch, tiles_per_block
 
 # Launch count of the CUDA kernel (plain-version calls do not count).
 launches = {"run_scan": 0}
@@ -52,7 +52,8 @@ def masked_run_cumsums(
     n = run_path.shape[0]
     mask, elem, n_paths, n_words = kernel_mask(mask, device)
     cswc, csw, words = alloc_outputs([n, n], n_words, device)
-    tpb, scratch = scan_scratch(1, n, device)
+    tpb = tiles_per_block(n)
+    scratch = scan_scratch(1, n, tpb, device)
     _build.check(
         "pollen_run_scan",
         _build.load().pollen_run_scan(

@@ -136,6 +136,62 @@ def test_batched_cross_wrapper_matches_pallas_interpret(nibble, q):
         assert torch.equal(d_p[i], d1) and torch.equal(u_p[i], u1)
 
 
+def _batched_reference(a, masks, nibble):
+    """The reference's Pallas kernel in interpret mode, on the matrix and
+    masks zero-padded to a multiple of 8 paths (its tile rule): extra
+    zero paths change no sum."""
+    rows, n_pad = a.shape
+    p = rows * 2 if nibble else rows
+    p8 = -(-p // 8) * 8
+    a8 = np.zeros((p8 // 2 if nibble else p8, n_pad), a.dtype)
+    a8[:rows] = a
+    m8 = np.zeros((masks.shape[0], p8), np.int32)
+    m8[:, : masks.shape[1]] = masks
+    return ref.batched_cross_depth_pallas(
+        jnp.asarray(a8), jnp.asarray(m8), nibble=nibble, interpret=True
+    )
+
+
+# The tensor-core kernel's edges: P = 2 (one byte row), 33 (K padded
+# past one 32-path step), 300 (several steps, ragged); Q = 1, 16 (one
+# mma row tile), 17 (one over), 40 (two 32-query chunks).
+@pytest.mark.parametrize("nibble", [True, False])
+@pytest.mark.parametrize("p", [2, 33, 300])
+@pytest.mark.parametrize("q", [1, 16, 17, 40])
+def test_batched_cross_edge_shapes_match_pallas_interpret(nibble, p, q):
+    rng = np.random.default_rng(100 * p + q + nibble)
+    rows = -(-p // 2) if nibble else p
+    a = _matrix(rng, 2 * rows if nibble else rows, 256, nibble)
+    masks = (rng.random((q, p)) < rng.random((q, 1))).astype(np.int32)
+    d_r, u_r = _batched_reference(a, masks, nibble)
+    d_p, u_p = port.batched_cross_depth(
+        torch.from_numpy(a), torch.from_numpy(masks), nibble=nibble
+    )
+    assert d_p.shape == (q, 256) and d_p.dtype == torch.int32
+    assert np.array_equal(np.asarray(d_r), d_p.numpy())
+    assert np.array_equal(np.asarray(u_r), u_p.numpy())
+
+
+@pytest.mark.parametrize("nibble", [True, False])
+@pytest.mark.parametrize("q", [1, 17])
+def test_batched_cross_at_the_clip(nibble, q):
+    """Every cell at its clip (15 nibble, 127 int8) under all-ones
+    masks: depth = clip * P and uniq = P exactly, as in the reference."""
+    p = 300
+    rows = p // 2 if nibble else p
+    clip = port.CLIP_NIBBLE if nibble else port.CLIP
+    a = np.full((rows, 256), 0xFF if nibble else clip,
+                np.uint8 if nibble else np.int8)
+    masks = np.ones((q, p), np.int32)
+    d_r, u_r = _batched_reference(a, masks, nibble)
+    d_p, u_p = port.batched_cross_depth(
+        torch.from_numpy(a), torch.from_numpy(masks), nibble=nibble
+    )
+    assert bool((d_p == clip * p).all()) and bool((u_p == p).all())
+    assert np.array_equal(np.asarray(d_r), d_p.numpy())
+    assert np.array_equal(np.asarray(u_r), u_p.numpy())
+
+
 def test_batched_cross_wrapper_checks_inputs():
     a = torch.zeros((64, 256), dtype=torch.uint8)
     with pytest.raises(ValueError, match="Q >= 1"):

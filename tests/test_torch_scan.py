@@ -29,6 +29,7 @@ from pollen_tpu.ops import depth as ref_depth
 from pollen_tpu_torch.device import build_graph, from_host_arrays
 from pollen_tpu_torch.kernels import gatherb, runscan, segscan
 from pollen_tpu_torch.ops import depth as port_depth
+from pollen_tpu_torch.probes import scan_ladder
 from pollen_tpu_torch.synth import synth_graph
 from test_torch_depth import run_cli
 
@@ -126,6 +127,53 @@ def test_seg_scan_head_carry(head_carry):
     _, csf = segscan.masked_depth_cumsums(t(path), t(run_start), t(mask), head_carry)
     # The leading group's first selected step fires here only at carry 0.
     assert int(csf[699]) == (1 if head_carry == 0 else 0)
+
+
+@pytest.mark.parametrize("head_carry", [0, 1, 2])
+@pytest.mark.parametrize("layout", ["one group", "start every 7"])
+def test_seg_scan_long_groups_match_reference(layout, head_carry):
+    """Inputs that make the card's single-pass scan look back far: one
+    group over 2 BLOCK steps (16 of the kernel's 2048-step partitions,
+    none with a group start) under the all-ones mask, and a group start
+    every 7 steps; the leading group began to the left (negative
+    run_start), so the head carry decides its first flag."""
+    s = 2 * BLOCK
+    pos = np.arange(s, dtype=np.int32)
+    mask = np.zeros(128, np.int32)
+    if layout == "one group":
+        path = np.zeros(s, np.int32)
+        run_start = np.full(s, -5, np.int32)
+        mask[0] = 1
+    else:
+        path = ((pos + 3) // 7 % 5).astype(np.int32)
+        run_start = pos - (pos + 3) % 7
+        mask[[0, 2, 3]] = 1
+    check_seg_scan(path, run_start, mask, head_carry)
+    csw, csf = segscan.masked_depth_cumsums(t(path), t(run_start), t(mask), head_carry)
+    if layout == "one group":
+        assert np.array_equal(csw.numpy(), pos + 1)
+        assert int(csf[-1]) == (1 if head_carry == 0 else 0)
+
+
+@pytest.mark.parametrize("variant", sorted(scan_ladder.PATCHES))
+def test_scan_ladder_patches_apply_to_the_shipped_header(variant):
+    """Each probe variant's patch finds its targets in csrc/common.cuh
+    exactly once (the probe builds the patched copy on the card)."""
+    source = (scan_ladder.PKG / scan_ladder.HEADER).read_text()
+    text = scan_ladder.patched(source, scan_ladder.PATCHES[variant])
+    assert (text == source) == (variant == "base")
+    with pytest.raises(ValueError, match="not found once"):
+        scan_ladder.patched(text, {"no such line in the header": ""})
+
+
+@pytest.mark.parametrize("n", [0, 1, 2048, 2049, 2**25])
+def test_tiles_per_block_bounds(n):
+    """The three-launch scan's tiles per block (K8): at least 1, at most
+    MAX_TILES_PER_BLOCK, and enough blocks to cover n."""
+    tpb = segscan.tiles_per_block(n)
+    assert 1 <= tpb <= segscan.MAX_TILES_PER_BLOCK
+    tiles = -(-n // segscan.TILE)
+    assert tpb == 1 or tiles // tpb >= segscan.TARGET_BLOCKS
 
 
 def test_seg_scan_refuses_a_negative_head_carry():
