@@ -17,7 +17,11 @@ and then:
    every cell at its clip under all-ones masks, at P = 2 to 300 paths,
    Q = 1, 5, 16, 17, 32, 40, and on a matrix 4 bytes off a 16-byte
    boundary (and at full size on bench's matrix under a seeded Q = 32
-   batch, before its timing);
+   batch, before its timing); K2 too at the clip, on byte rows 1, 13,
+   33, 100 and 2,500 by 128 to 4,736 columns, masks shorter and longer
+   than the paths, int8 over -128..127 and a matrix 4 bytes off 16, each
+   with and without uniq (and at full size on chr8_third's 256 MiB
+   matrix under a seeded and the all-ones mask, before its timing);
 2. drives the main paths through the user's entry points: ``fgfa-torch
    --device cuda depth -d``, ``depth -d -s`` and ``depth -d -S`` on
    every fixture, byte for byte against the goldens, and a ``serve``
@@ -36,7 +40,9 @@ K8 against their plain versions on the fixtures and on seeded cases of
 1-3 scan blocks at 60 to 2^17 + 300 paths, a group across three blocks
 and a head carry, and K6's single pass at 2^25 steps (one group; a
 group start every 7 steps; 20 back-to-back calls; two replays of a
-captured CUDA graph) (phase 1); ``depth -d -s`` (route "scan") and
+captured CUDA graph), and K8's at 2^25 runs (all-ones mask, the
+weighted sum wrapping past 2^31; seeded runs; 20 back-to-back calls;
+two graph replays) (phase 1); ``depth -d -s`` (route "scan") and
 ``depth -d -S`` (route "runs") goldens and a ``serve`` request of each
 under POLLEN_CROSS_BUDGET_MB=0 (phase 2); and two synthetic graphs,
 wide_p2e17 (2^17 paths, route "scan") and bench_runs (route "runs"),
@@ -62,7 +68,10 @@ wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
 wall, its bound and its library call (wall and replay): one PyTorch
 call of the same function (K2, K5: a product by [A | min(A, 1)]; K6,
-K8: two cumsums), where there is one. Exits nonzero
+K8: two cumsums), where there is one. K2 and K8 have a second row at
+HBM scale (chr8_third's crossing matrix; wide_p2e17's run index), and
+the profiler must show K6 and K8 each as one single-pass scan launch.
+Exits nonzero
 at the first failed check. The line before the last is one JSON object
 with each kernel's launches, error, times, bound and library call
 times; the last is ``{"ok": true, "device": {...}}``.
@@ -100,6 +109,14 @@ KERNELS = {
     "seg_scan (K6)": (SRC_SCAN, "pollen_tpu/kernels/segscan.py:129", "seg_scan"),
     "boundary (K7)": (SRC_SCAN, "pollen_tpu/kernels/gatherb.py:123", "boundary"),
     "run_scan (K8)": (SRC_SCAN, "pollen_tpu/kernels/runscan.py:65", "run_scan"),
+    # K2 and K8 timed a second time at HBM scale (the same kernels; their
+    # launches are their main paths' counts).
+    "cross (K2), chr8_third matrix": (
+        SRC, "pollen_tpu/kernels/crossmat.py:102", "cross"
+    ),
+    "run_scan (K8), wide_p2e17": (
+        SRC_SCAN, "pollen_tpu/kernels/runscan.py:65", "run_scan"
+    ),
     "ell_flat (K9)": (SRC, "pollen_tpu/kernels/ellscan.py:326", "ell_flat"),
     "cross_probe_raw (K10)": (
         SRC_PROBES, "probes/crossmat_floor.py:49", "cross_probe_raw"
@@ -116,9 +133,11 @@ KERNELS = {
 }
 # The kernels of each main path: the single query, the batch, the scan
 # family (single queries and batches past the ELL and matrix budgets).
-SINGLE_PATH = ("ell_splitn (K1)", "cross (K2)", "ell_tier (K3)")
+SINGLE_PATH = ("ell_splitn (K1)", "cross (K2)", "ell_tier (K3)",
+               "cross (K2), chr8_third matrix")
 BATCH_PATH = ("ell_splitn_batch (K4)", "cross_batch (K5)")
-SCAN_PATH = ("seg_scan (K6)", "boundary (K7)", "run_scan (K8)")
+SCAN_PATH = ("seg_scan (K6)", "boundary (K7)", "run_scan (K8)",
+             "run_scan (K8), wide_p2e17")
 # The flat-ELL path (build_ell, then masked_ell_depth) and the probe
 # ladder (the two probe scripts' run()).
 FLAT_PATH = ("ell_flat (K9)",)
@@ -529,6 +548,79 @@ def phase_kernels_cross_batch(errs: Errors):
           "nibble P = 2, 30, 66, 300; a matrix 4 bytes off a 16-byte "
           f"boundary; Q = {', '.join(map(str, CROSS_QS))}; all equal plain "
           "(tolerance 0)", flush=True)
+
+
+def phase_kernels_cross(errs: Errors):
+    """Phase 1 (K2's edges): every cell at its clip (15 nibble, 127 int8)
+    under all-ones masks, whose sums are known; byte rows 1, 13, 33
+    (not a multiple of the 8 rows a thread has in flight), 100 (past 8
+    row groups' one batch each) and 2,500 (past the 2,048-row list
+    chunk); 128 columns (one tile, most lanes idle), 1,024
+    and 4,736 (ragged tiles); a matrix 4 bytes off a 16-byte boundary
+    (4-byte loads); int8 cells over the whole signed range; masks
+    shorter and longer than the matrix's paths; both layouts, with and
+    without uniq. Tolerance 0."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import crossmat as cm
+
+    name = "cross (K2)"
+    rng = np.random.default_rng(7)
+
+    def check(a, m, nib, what):
+        p = a.shape[0] * (2 if nib else 1)
+        mp = cm.pad_mask(m, p)
+        want = cm.masked_cross_depth_plain(a, mp, nibble=nib)
+        errs.compare(name, cm.masked_cross_depth(a, m, nibble=nib), want, what)
+        errs.compare(name, [cm.masked_cross_depth(a, m, nibble=nib, uniq=False)],
+                     want[:1], what + ", depth only")
+        return want
+
+    for nib, clip in ((True, cm.CLIP_NIBBLE), (False, cm.CLIP)):
+        for rows in (1, 13, 150, 300):
+            p = 2 * rows if nib else rows
+            a = torch.full((rows, 1024), 0xFF if nib else clip,
+                           dtype=torch.uint8 if nib else torch.int8,
+                           device="cuda")
+            d, u = check(a, torch.ones(p, dtype=torch.int32, device="cuda"),
+                         nib, f"every cell {clip}, {rows} rows")
+            need(bool((d == clip * p).all()) and bool((u == p).all()),
+                 f"K2 every cell {clip}, {rows} rows: depth {int(d.max())}, "
+                 f"uniq {int(u.max())}")
+    for nib in (True, False):
+        for rows in (1, 13, 33, 100, 2500):
+            for n_pad in (128, 1024, 4736):
+                if rows == 2500 and n_pad != 1024:
+                    continue
+                if nib:
+                    a = rng.integers(0, 256, (rows, n_pad)).astype(np.uint8)
+                else:
+                    a = rng.integers(-128, 128, (rows, n_pad)).astype(np.int8)
+                a[rng.random(a.shape) < 0.3] = 0
+                a = torch.from_numpy(a).cuda()
+                p = 2 * rows if nib else rows
+                for plen in (p, max(p - 3, 1), p + 40):
+                    m = torch.from_numpy(rng.random(plen) < rng.random()).cuda()
+                    check(a, m, nib, f"{rows} rows x {n_pad}, mask of {plen} "
+                          f"paths, nibble={nib}")
+        rows, n_pad = 33, 1024
+        flat = torch.from_numpy(
+            rng.integers(0, 256, rows * n_pad + 4).astype(np.uint8)
+        ).cuda()
+        a = flat[4:].view(rows, n_pad)
+        if not nib:
+            a = a.view(torch.int8)
+        need(a.data_ptr() % 16 == 4, "expected a matrix 4 bytes off 16")
+        check(a, torch.from_numpy(rng.random(66) < 0.5).cuda(), nib,
+              f"matrix 4 bytes off 16, nibble={nib}")
+    torch.cuda.synchronize()
+    print("phase 1 (K2): every cell at the clip (15, 127) under all-ones "
+          "masks gives 15 P and 127 P exactly; byte rows 1, 13, 33, 100, 2500 x "
+          "128, 1024, 4736 columns; masks shorter and longer than P; int8 "
+          "over -128..127; a matrix 4 bytes off a 16-byte boundary; both "
+          "layouts, with and without uniq; all equal plain (tolerance 0)",
+          flush=True)
 
 
 def run_cli(argv, stdin_text=""):
@@ -1119,14 +1211,16 @@ def phase_kernels_scan(errs: Errors):
             mk[3] = 1
             seg(cuda(ids), cuda(rs), None, cuda(mk), f"head carry {hc}", hc)
     check_seg_scan_lookback(errs)
+    check_run_scan_lookback(errs)
     torch.cuda.synchronize()
     print("phase 1 (scan family): K6, K7, K8 equal their plain versions on "
           f"8 fixtures and P = {', '.join(map(str, SCAN_PS))} (1-3 scan "
           "blocks), a group across three blocks and of 2^23 steps, head "
           "carry 0-2; 4 masks each; K6's look-back on 2^25 steps (one "
           "group, and a group start every 7 steps), 20 back-to-back calls "
-          "and two replays of a captured CUDA graph (tolerance 0: exact "
-          "int32)", flush=True)
+          "and two replays of a captured CUDA graph; K8's the same at 2^25 "
+          "runs (all-ones mask, weighted sum wrapping past 2^31; seeded "
+          "runs over 5,000 paths) (tolerance 0: exact int32)", flush=True)
 
 
 def check_seg_scan_lookback(errs: Errors):
@@ -1180,6 +1274,59 @@ def check_seg_scan_lookback(errs: Errors):
         graph.replay()
         torch.cuda.synchronize()
         errs.compare("seg_scan (K6)", got, want, f"CUDA graph replay {i}")
+    del graph, got
+
+
+def check_run_scan_lookback(errs: Errors):
+    """K8's single pass at 2^25 runs: under the all-ones mask with
+    counts whose weighted sum passes 2^31 and wraps (every look-back
+    walks across many predecessors' aggregates), and on seeded paths and
+    counts with a random mask; then 20 back-to-back calls on one input
+    and two replays of a CUDA graph that captured one call, each equal
+    to plain."""
+    import torch
+
+    from pollen_tpu_torch.kernels import runscan
+
+    n = 2**25
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    path = torch.zeros(n, dtype=torch.int32, device="cuda")
+    count = torch.full((n,), 100, dtype=torch.int32, device="cuda")
+    ones = torch.ones(1, dtype=torch.int32, device="cuda")
+    wc, w = runscan.masked_run_cumsums(path, count, ones)
+    errs.compare("run_scan (K8)", (wc, w),
+                 runscan.masked_run_cumsums_plain(path, count, ones),
+                 "2^25 runs, all-ones mask, weighted sum past 2^31")
+    need(int(w[-1]) == n and int(wc[-1]) == (100 * n + 2**31) % 2**32 - 2**31,
+         f"K8 at 2^25 runs: last sums {int(wc[-1])}, {int(w[-1])}")
+    del wc, w
+    path = torch.randint(0, 5000, (n,), dtype=torch.int32, device="cuda",
+                         generator=gen)
+    count = torch.randint(1, 2**16, (n,), dtype=torch.int32, device="cuda",
+                          generator=gen)
+    m = torch.rand(5000, device="cuda", generator=gen) < 0.5
+    want = runscan.masked_run_cumsums_plain(path, count, m)
+    errs.compare("run_scan (K8)", runscan.masked_run_cumsums(path, count, m),
+                 want, "2^25 seeded runs over 5,000 paths")
+    outs = [runscan.masked_run_cumsums(path, count, m) for _ in range(20)]
+    for i, got in enumerate(outs):
+        errs.compare("run_scan (K8)", got, want, f"back-to-back call {i}")
+    del outs
+    fn = functools.partial(runscan.masked_run_cumsums, path, count, m)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    for i in range(2):
+        for c in got:
+            c.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        errs.compare("run_scan (K8)", got, want, f"CUDA graph replay {i}")
     del graph, got
 
 
@@ -1307,7 +1454,7 @@ def phase_scale_scan() -> dict:
     return out
 
 
-def phase_scan_timing(scan: dict, card: str) -> dict:
+def phase_scan_timing(scan: dict, errs: Errors, card: str) -> dict:
     """Phase 3 (scan timing): one routed query and the runs batch at
     Q = 1 and 32, kernels against plain (CUDA-event wall, profiler
     busy); returns K6-K8's kernel timings for the JSON line."""
@@ -1316,6 +1463,7 @@ def phase_scan_timing(scan: dict, card: str) -> dict:
 
     from pollen_tpu_torch.kernels import gatherb, runscan, segscan
     from pollen_tpu_torch.ops import depth as depth_op
+    from pollen_tpu_torch.probes.timing import replay_us
 
     rng = np.random.default_rng(3)
     for name, (g, dg, route) in scan.items():
@@ -1376,17 +1524,38 @@ def phase_scan_timing(scan: dict, card: str) -> dict:
         bound(4 * nb + 2 * 4 * nb + 2 * 4 * (nb - 1), core_ops=4 * (nb - 1)),
         None,
     )
-    _, dgr, _ = scan["bench_runs"]
-    mr = torch.from_numpy(rng.random(dgr.num_paths) < 0.5).cuda()
-    r = dgr.run_path.shape[0]
-    ones_r = torch.ones((2, r), dtype=torch.int32, device="cuda")
-    times["run_scan (K8)"] = (
-        lambda: runscan.masked_run_cumsums(dgr.run_path, dgr.run_count, mr),
-        lambda: runscan.masked_run_cumsums_plain(dgr.run_path, dgr.run_count, mr),
-        f"bench_runs, {r} padded runs",
-        bound(16 * r + dgr.num_paths, core_ops=4 * r),
-        lambda: torch.cumsum(ones_r, 1, dtype=torch.int32),
-    )
+    # K8 at bench_runs (one wave of partitions) and at wide_p2e17's run
+    # index (HBM scale); its call must be the single pass, and two 1-D
+    # cumsums of the same length are timed beside it.
+    for key, cell in (("run_scan (K8)", "bench_runs"),
+                      ("run_scan (K8), wide_p2e17", "wide_p2e17")):
+        _, dgr, _ = scan[cell]
+        mr = torch.from_numpy(rng.random(dgr.num_paths) < 0.5).cuda()
+        r = dgr.run_path.shape[0]
+        k8 = functools.partial(runscan.masked_run_cumsums, dgr.run_path,
+                               dgr.run_count, mr)
+        plain = functools.partial(runscan.masked_run_cumsums_plain,
+                                  dgr.run_path, dgr.run_count, mr)
+        errs.compare(key, k8(), plain(), f"{cell}, a seeded random mask")
+        prof = device_profile(k8, reps=10)
+        print(f"run_scan (K8) call at {cell}: {describe_profile(prof)}",
+              flush=True)
+        need(not prof or ("scan_single" in prof and not any(
+            k in prof for k in ("scan_reduce", "scan_totals", "scan_down"))),
+             f"K8 is not one single-pass launch: {sorted(prof)}")
+        ones_r = torch.ones((2, r), dtype=torch.int32, device="cuda")
+        one_d = functools.partial(torch.cumsum, ones_r[0], 0,
+                                  dtype=torch.int32)
+        print(f"two 1-D torch.cumsum calls of {r} int32 at {cell} [{card}]: "
+              f"{2 * replay_us(one_d):.2f} us device (graph replay)",
+              flush=True)
+        times[key] = (
+            k8,
+            plain,
+            f"{cell}, {r} padded runs",
+            bound(16 * r + dgr.num_paths, core_ops=4 * r),
+            functools.partial(torch.cumsum, ones_r, 1, dtype=torch.int32),
+        )
     return time_kernels(times, card)
 
 
@@ -1695,6 +1864,57 @@ def phase_flat_probe_timing(graphs: dict, flat: dict, probes: dict,
         out.update(time_kernels(times, card))  # chr8_third's rows stay
         del raw_f, a_f
         torch.cuda.empty_cache()
+    out.update(time_cross_chr8(probes, errs, card, rng))
+    return out
+
+
+def time_cross_chr8(probes: dict, errs: Errors, card: str, rng) -> dict:
+    """K2 on chr8_third's 256 MiB nibble matrix: held against plain under
+    a seeded random mask and under the all-ones mask, then timed under
+    the mask of every path the graph has, against its library call, the
+    float32 product of the folded mask by [A | min(A, 1)] (4 GiB of
+    float32 made ahead of time), or where the card lacks the memory,
+    by the unpacked A alone (depth only, the vd rung's form). The bound
+    counts the byte rows that mask selects (a row whose two paths are
+    both out of the mask is never needed), the mask and the outputs."""
+    import torch
+
+    from pollen_tpu_torch.kernels import crossmat as cm
+
+    cross, mask, _ = probes["chr8_third"]
+    rows, n = cross.shape
+    name = "cross (K2), chr8_third matrix"
+    mp = cm.pad_mask(mask, 2 * rows)
+    m_rand = torch.from_numpy(rng.random(2 * rows) < 0.5).cuda() & (mp != 0)
+    for m, what in ((m_rand, "a seeded random mask"), (mp, "the all-ones mask")):
+        errs.compare(name, cm.masked_cross_depth(cross, m, nibble=True),
+                     cm.masked_cross_depth_plain(cross, cm.pad_mask(m, 2 * rows),
+                                                 nibble=True),
+                     f"chr8_third matrix {tuple(cross.shape)}, {what}")
+    fm = cm.fold_mask(mp).float()[None]
+    live = int(((mp[0::2] != 0) | (mp[1::2] != 0)).sum())  # rows needed
+    print(f"{name}: the mask selects {int((mp != 0).sum())} paths, "
+          f"{live} of {rows} byte rows", flush=True)
+    free, _ = torch.cuda.mem_get_info()
+    if free > 6 * (2 * rows) * n * 4 + 2**30:  # the copies made on the way
+        a_lib = both_products(cm.unpack_cross(cross)).float()
+        form = "float32 torch.matmul, folded mask x [A | min(A, 1)]"
+    else:
+        a_lib = cm.unpack_cross(cross).float()
+        form = ("float32 torch.matmul, folded mask x A (depth only: "
+                f"{free / 2**30:.1f} GiB free)")
+    torch.cuda.empty_cache()
+    print(f"{name}: library call {form}", flush=True)
+    times = {name: (
+        functools.partial(cm.masked_cross_depth, cross, mp, nibble=True),
+        functools.partial(cm.masked_cross_depth_plain, cross, mp, nibble=True),
+        f"chr8_third matrix {tuple(cross.shape)}, all-ones mask",
+        bound(live * n + 2 * rows + 8 * n, tensor_ops=4 * 2 * live * n),
+        lambda: torch.matmul(fm, a_lib),
+    )}
+    out = time_kernels(times, card)
+    del a_lib
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1731,6 +1951,7 @@ def main() -> int:
     errs = Errors()
     phase_kernels(errs)
     phase_kernels_cross_batch(errs)
+    phase_kernels_cross(errs)
     phase_kernels_scan(errs)
     phase_kernels_flat_probes(errs)
     stamp("phase 1 done")
@@ -1777,7 +1998,7 @@ def main() -> int:
     stamp("single-query and kernel timing done")
     phase_batch_timing(batch, card)
     stamp("batch timing done")
-    timing.update(phase_scan_timing(scan, card))
+    timing.update(phase_scan_timing(scan, errs, card))
     stamp("scan-family timing done")
     timing.update(phase_flat_probe_timing(graphs, flat, probes, errs,
                                          card))

@@ -9,7 +9,8 @@ Served so far: ``depth`` (path depth, ``-r``), ``depth -d``,
 answered in one batched device pass) and ``serve``, which answers depth
 requests over one resident graph with the reference's framing
 (``##end\\tok`` or ``##end\\terror\\t<message>`` after each response).
-Every other command exits with "not ported yet".
+Every other command, and ``-o``/``-O`` output on any command or serve
+request, exits with "not ported yet".
 
 ``--device cuda|cpu`` (default ``cuda``) picks where the index lives and
 the queries run. A ``cuda`` run without a card is an error.
@@ -230,6 +231,14 @@ def _not_ported(what: str) -> ValueError:
     return ValueError(f"{what} is not ported yet (see ROADMAP.md)")
 
 
+def _refuse_output(args) -> None:
+    """``-o``/``-O`` name files the reference writes after the command
+    (its ``_store``); the port has no writer yet, so it refuses them
+    before it reads or answers anything."""
+    if args.output or args.output_gfa:
+        raise _not_ported("-o/-O output")
+
+
 def _run_depth(args, g, dg, out: TextIO) -> None:
     # The reference's order: -b, then -S (with or without -d), then -d.
     if args.bed_input:
@@ -264,6 +273,7 @@ def main(
 def _main(argv, stdin: TextIO, out: TextIO) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
+    _refuse_output(args)
     if args.command not in ("depth", "serve"):
         raise _not_ported(f"command {args.command or '(convert)'!r}")
     device = resolve_device(args.device)
@@ -302,6 +312,7 @@ def _serve(parser, args, g, device, stdin: TextIO, out: TextIO) -> None:
                 raise _not_ported(f"serving {qargs.command!r}")
             if qargs.input or qargs.input_gfa:
                 raise ValueError("serve requests cannot re-load graphs")
+            _refuse_output(qargs)
             _run_depth(qargs, g, make_dg(), out)
             out.write("##end\tok\n")
         except BrokenPipeError:

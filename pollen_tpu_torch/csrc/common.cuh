@@ -45,6 +45,15 @@ __device__ __forceinline__ int mask_bit(
   return (int)(((unsigned)words[w] >> (pid & 31u)) & 1u);
 }
 
+// Entry i of a raw 0/1 mask of n_paths entries, one byte or one int32
+// (`elem_bytes`) each; 0 past its end.
+__device__ __forceinline__ int raw_mask_bit(const void* mask, int elem_bytes,
+                                            long long n_paths, long long i) {
+  if (i >= n_paths) return 0;
+  return elem_bytes == 4 ? static_cast<const int*>(mask)[i] != 0
+                         : static_cast<const uint8_t*>(mask)[i] != 0;
+}
+
 // Rows of 0/1 path masks (one byte or one int32 per path, `n_paths` per
 // row, row blockIdx.y) -> rows of n_words bit words, one ballot per
 // warp. Launched ahead of each kernel on the same stream, so a query
@@ -54,13 +63,10 @@ __global__ void __launch_bounds__(THREADS) pack_mask_kernel(
     int n_words) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   const long long row = blockIdx.y;
-  int bit = 0;
-  if (i < n_paths) {
-    const long long at = row * n_paths + i;
-    bit = elem_bytes == 4 ? static_cast<const int*>(mask)[at] != 0
-                          : static_cast<const uint8_t*>(mask)[at] != 0;
-  }
-  const unsigned w = __ballot_sync(0xFFFFFFFFu, bit);
+  const void* row_mask =
+      static_cast<const uint8_t*>(mask) + row * n_paths * elem_bytes;
+  const unsigned w =
+      __ballot_sync(0xFFFFFFFFu, raw_mask_bit(row_mask, elem_bytes, n_paths, i));
   if ((threadIdx.x & 31) == 0 && (i >> 5) < n_words) {
     words[row * n_words + (i >> 5)] = (int)w;
   }
@@ -76,20 +82,11 @@ void pack_mask(const void* mask, int elem_bytes, int n_paths, int rows,
 }
 
 // ---------------------------------------------------------------------
-// Scan templates (scan.cu): an inclusive scan of an associative, not
-// necessarily commutative, operator over n elements, each made from two
-// int32 inputs (x[i], y[i]) and its position, writing two int32 outputs
-// per element. Two forms over the same Op:
-//
-//   launch_scan_single  one launch, each input read once: persistent
-//                       blocks take partitions in ticket order and find
-//                       each one's prefix by a decoupled look-back (K6).
-//   launch_scan         three launches, no spin-waits, inputs read
-//                       twice (K8):
-//     scan_reduce  one aggregate per block (blocks of `tpb` tiles);
-//     scan_totals  one block turns those into exclusive block prefixes;
-//     scan_down    each block rescans its tiles from its prefix and
-//                  writes the outputs.
+// The scan template (scan.cu, K6 and K8): an inclusive scan of an
+// associative, not necessarily commutative, operator over n elements,
+// each made from two int32 inputs (x[i], y[i]) and its position, writing
+// two int32 outputs per element, in one launch that reads each input
+// once (launch_scan_single, below).
 //
 // A thread takes SCAN_ITEMS consecutive elements (16-byte loads and
 // stores where aligned), composes them in order, and a block-wide
@@ -99,15 +96,14 @@ void pack_mask(const void* mask, int elem_bytes, int n_paths, int rows,
 //   static Agg identity();  static Agg combine(Agg a, Agg b);
 //   Agg element(long long i, int x, int y, const int* words) const;
 //   void emit(const Agg& prefix, int* o0, int* o1) const;  // inclusive
-//   static int4 to_desc(const Agg& a, int flag);   // single pass only:
-//   static int from_desc(const int4& d, Agg& a);   // flag 1 or 2 and Agg
-//                                                  // in 16 bytes
+//   static int4 to_desc(const Agg& a, int flag);   // the look-back
+//   static int from_desc(const int4& d, Agg& a);   // descriptor: flag
+//                                                  // and Agg in 16 bytes
 // and the members x, y, out0, out1, n, words, n_words.
 // ---------------------------------------------------------------------
 
 constexpr int SCAN_ITEMS = 8;
 constexpr int SCAN_TILE = THREADS * SCAN_ITEMS;  // elements per tile
-constexpr int TOTALS_THREADS = 1024;
 constexpr int SCAN_SMEM_WORDS = 4096;  // 2^17 paths of mask bits (16 KB)
 
 template <class T>
@@ -202,47 +198,6 @@ __device__ __forceinline__ typename Op::Agg thread_aggregate(
   return acc;
 }
 
-template <class Op>
-__global__ void __launch_bounds__(THREADS) scan_reduce(
-    Op op, int tpb, typename Op::Agg* block_aggs) {
-  using Agg = typename Op::Agg;
-  __shared__ int s_words[SCAN_SMEM_WORDS];
-  __shared__ Agg s_tot[33];
-  const int* w = stage_words(s_words, op.words, op.n_words, SCAN_SMEM_WORDS);
-  Agg carry = Op::identity();
-  for (int k = 0; k < tpb; ++k) {
-    const long long base = ((long long)blockIdx.x * tpb + k) * SCAN_TILE;
-    if (base >= op.n) break;  // block-uniform
-    int x[SCAN_ITEMS], y[SCAN_ITEMS];
-    load_items(op, base, x, y);
-    Agg total;
-    block_exclusive_scan<Op>(thread_aggregate(op, base, x, y, w), s_tot,
-                             &total);
-    carry = Op::combine(carry, total);
-  }
-  if (threadIdx.x == 0) block_aggs[blockIdx.x] = carry;
-}
-
-// One block: block aggregates -> exclusive block prefixes, in place.
-template <class Op>
-__global__ void __launch_bounds__(TOTALS_THREADS) scan_totals(
-    typename Op::Agg* block_aggs, int nb) {
-  using Agg = typename Op::Agg;
-  __shared__ Agg s_tot[33];
-  const int per = (nb + TOTALS_THREADS - 1) / TOTALS_THREADS;
-  const int lo = min(nb, (int)threadIdx.x * per);
-  const int hi = min(nb, lo + per);
-  Agg acc = Op::identity();
-  for (int b = lo; b < hi; ++b) acc = Op::combine(acc, block_aggs[b]);
-  Agg total;
-  Agg run = block_exclusive_scan<Op>(acc, s_tot, &total);
-  for (int b = lo; b < hi; ++b) {
-    const Agg a = block_aggs[b];
-    block_aggs[b] = run;
-    run = Op::combine(run, a);
-  }
-}
-
 // Writes the outputs of the thread's items of the tile at `base`; `p`
 // is the exclusive prefix of its first item.
 template <class Op>
@@ -280,45 +235,6 @@ __device__ __forceinline__ void emit_items(const Op& op, long long base,
   }
 }
 
-template <class Op>
-__global__ void __launch_bounds__(THREADS) scan_down(
-    Op op, int tpb, const typename Op::Agg* block_prefix) {
-  using Agg = typename Op::Agg;
-  __shared__ int s_words[SCAN_SMEM_WORDS];
-  __shared__ Agg s_tot[33];
-  const int* w = stage_words(s_words, op.words, op.n_words, SCAN_SMEM_WORDS);
-  Agg carry = block_prefix[blockIdx.x];
-  for (int k = 0; k < tpb; ++k) {
-    const long long base = ((long long)blockIdx.x * tpb + k) * SCAN_TILE;
-    if (base >= op.n) break;  // block-uniform
-    int x[SCAN_ITEMS], y[SCAN_ITEMS];
-    load_items(op, base, x, y);
-    Agg total;
-    const Agg excl = block_exclusive_scan<Op>(
-        thread_aggregate(op, base, x, y, w), s_tot, &total);
-    emit_items(op, base, x, y, w, Op::combine(carry, excl));
-    carry = Op::combine(carry, total);
-  }
-}
-
-// Blocks of a scan over n elements at `tpb` tiles per block.
-inline int scan_blocks(long long n, int tpb) {
-  const long long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
-  return (int)((tiles + tpb - 1) / tpb);
-}
-
-// The three launches of one scan. `block_aggs` holds scan_blocks(n, tpb)
-// aggregates of scratch.
-template <class Op>
-void launch_scan(const Op& op, int tpb, typename Op::Agg* block_aggs,
-                 cudaStream_t stream) {
-  const int nb = scan_blocks(op.n, tpb);
-  if (nb <= 0) return;
-  scan_reduce<Op><<<nb, THREADS, 0, stream>>>(op, tpb, block_aggs);
-  scan_totals<Op><<<1, TOTALS_THREADS, 0, stream>>>(block_aggs, nb);
-  scan_down<Op><<<nb, THREADS, 0, stream>>>(op, tpb, block_aggs);
-}
-
 // ---------------------------------------------------------------------
 // Single-pass scan with decoupled look-back (Merrill & Garland, "Single-
 // pass Parallel Prefix Scan with Decoupled Look-back", 2016). Each turn
@@ -339,10 +255,22 @@ void launch_scan(const Op& op, int tpb, typename Op::Agg* block_aggs,
 // release store or an acquire fence would wait for the warp's
 // outstanding stores, three times a partition, on the look-back's path.
 //
+// A reader polls until a descriptor decodes as FLAG_AGG or FLAG_PREFIX;
+// any other flag (0 from the reset, or a value a read torn between two
+// stores could decode to) counts as not ready. Op::from_desc may return
+// 0 for a read whose parts disagree (K8's descriptor does).
+//
 // Scratch of n elements (single_scan_scratch_bytes): the ticket counter
 // (16 bytes), then one descriptor a partition. The launch zeroes it with
 // cudaMemsetAsync on its own stream (flag 0: not ready), so every call,
 // and every replay of a captured CUDA graph, starts from a reset.
+//
+// The mask: with at most FOLD_WORDS bit words (8,192 paths) each block
+// ballots the raw 0/1 mask into shared memory itself, so the call is the
+// memset and one kernel; past that one pack_mask launch packs the words
+// once ahead of the scan (a block reading 2^17 raw mask bytes would cost
+// more than the launch), and blocks stage them (up to SCAN_SMEM_WORDS)
+// or read them from global memory.
 // ---------------------------------------------------------------------
 
 // Blocks an SM holds (at most 48 registers a thread): partitions in
@@ -351,6 +279,27 @@ constexpr int SINGLE_MIN_BLOCKS = 5;
 constexpr int FLAG_AGG = 1;
 constexpr int FLAG_PREFIX = 2;
 constexpr long long SCAN_HEADER_BYTES = 16;
+constexpr int FOLD_WORDS = 256;
+
+__device__ __forceinline__ bool desc_ready(int flag) {
+  return flag == FLAG_AGG || flag == FLAG_PREFIX;
+}
+
+// The raw 0/1 mask (`elem_bytes` 1 or 4 per path) as n_words bit words in
+// shared memory, one ballot per warp. Every thread of the block calls it;
+// n_words * 32 is a multiple of the warp, so each warp's lanes loop
+// together.
+__device__ __forceinline__ const int* stage_raw_mask(
+    int* s_words, const void* mask, int elem_bytes, int n_paths,
+    int n_words) {
+  for (int i = threadIdx.x; i < n_words * 32; i += blockDim.x) {
+    const unsigned b =
+        __ballot_sync(0xFFFFFFFFu, raw_mask_bit(mask, elem_bytes, n_paths, i));
+    if ((threadIdx.x & 31) == 0) s_words[i >> 5] = (int)b;
+  }
+  __syncthreads();
+  return s_words;
+}
 
 inline long long single_scan_parts(long long n) {
   return (n + SCAN_TILE - 1) / SCAN_TILE;
@@ -403,8 +352,8 @@ __device__ typename Op::Agg look_back(int part, const typename Op::Agg& total,
     const int p = end - 1 - lane;
     Agg v = Op::identity();
     int flag = p < 0 ? FLAG_PREFIX : 0;
-    while (__any_sync(0xFFFFFFFFu, flag == 0)) {
-      if (flag == 0) flag = Op::from_desc(ld_desc(desc + p), v);
+    while (__any_sync(0xFFFFFFFFu, !desc_ready(flag))) {
+      if (!desc_ready(flag)) flag = Op::from_desc(ld_desc(desc + p), v);
     }
     const unsigned pre = __ballot_sync(0xFFFFFFFFu, flag == FLAG_PREFIX);
     const int stop = pre ? __ffs(pre) - 1 : 31;  // nearest inclusive prefix
@@ -422,13 +371,19 @@ __device__ typename Op::Agg look_back(int part, const typename Op::Agg& total,
 
 template <class Op>
 __global__ void __launch_bounds__(THREADS, SINGLE_MIN_BLOCKS)
-    scan_single(Op op, int parts, int* counter, int4* desc) {
+    scan_single(Op op, int parts, int* counter, int4* desc, const void* raw,
+                int elem_bytes, int n_paths) {
   using Agg = typename Op::Agg;
   __shared__ int s_words[SCAN_SMEM_WORDS];
   __shared__ Agg s_tot[33];
   __shared__ Agg s_prefix;
   __shared__ int s_part;
-  const int* w = stage_words(s_words, op.words, op.n_words, SCAN_SMEM_WORDS);
+  // raw: fold the mask packing in (n_words <= FOLD_WORDS); else the
+  // words pack_mask wrote.
+  const int* w =
+      raw != nullptr
+          ? stage_raw_mask(s_words, raw, elem_bytes, n_paths, op.n_words)
+          : stage_words(s_words, op.words, op.n_words, SCAN_SMEM_WORDS);
   // A ticket is taken only when the block can start on it: a ticket held
   // while its block finishes another partition stalls every later one.
   for (;;) {
@@ -456,16 +411,23 @@ __global__ void __launch_bounds__(THREADS, SINGLE_MIN_BLOCKS)
   }
 }
 
-// The one launch of a single-pass scan (after the caller's pack_mask),
-// the reset of its scratch ahead of it on the same stream.
+// A single-pass scan on `stream`: the reset of its scratch, then (past
+// FOLD_WORDS mask words) pack_mask of the raw mask into op.words, then
+// the scan. `mask` holds n_paths entries of `elem_bytes` each.
 template <class Op>
-cudaError_t launch_scan_single(const Op& op, void* scratch,
+cudaError_t launch_scan_single(const Op& op, const void* mask,
+                               int elem_bytes, int n_paths, void* scratch,
                                cudaStream_t stream) {
   const long long parts = single_scan_parts(op.n);
   if (parts <= 0) return cudaSuccess;
   const cudaError_t err = cudaMemsetAsync(
       scratch, 0, single_scan_scratch_bytes(op.n), stream);
   if (err != cudaSuccess) return err;
+  const bool fold = op.n_words <= FOLD_WORDS;
+  if (!fold) {
+    pack_mask(mask, elem_bytes, n_paths, 1, const_cast<int*>(op.words),
+              op.n_words, stream);
+  }
   // Blocks resident on the card at once, found on the first call (before
   // any graph capture). Any count gives the same answer.
   static int resident = 0;
@@ -480,7 +442,8 @@ cudaError_t launch_scan_single(const Op& op, void* scratch,
   char* base = static_cast<char*>(scratch);
   scan_single<Op><<<(int)(parts < resident ? parts : resident), THREADS, 0,
                     stream>>>(op, (int)parts, reinterpret_cast<int*>(base),
-                              reinterpret_cast<int4*>(base + SCAN_HEADER_BYTES));
+                              reinterpret_cast<int4*>(base + SCAN_HEADER_BYTES),
+                              fold ? mask : nullptr, elem_bytes, n_paths);
   return cudaGetLastError();
 }
 

@@ -21,23 +21,25 @@
 // write 8 B per element, with a few integer operations each; K7 reads
 // its bounds and gathers two values per bound. Design:
 //
-//   * K6 is common.cuh's single-pass scan: one launch after the mask
-//     packing, each input read once with 16-byte loads and each output
-//     written once (16 B per element, the minimum). Persistent blocks
-//     take 2048-element partitions in ticket order; a partition's
-//     prefix crosses blocks through a decoupled look-back over the
-//     SegAgg aggregates below, each packed with its flag into one
+//   * K6 and K8 are common.cuh's single-pass scan over their own Ops:
+//     one scan launch, each input read once with 16-byte loads and each
+//     output written once (16 B per element, the minimum). Persistent
+//     blocks take 2048-element partitions in ticket order; a
+//     partition's prefix crosses blocks through a decoupled look-back
+//     over the aggregates below, each packed with its flag into one
 //     16-byte descriptor (to_desc), so publishing and reading need no
 //     fence. The scratch's counter and descriptors are zeroed on the
 //     caller's stream ahead of the launch, so a replayed CUDA graph
-//     resets too.
-//   * K8 still runs the three-launch reduce / scan-of-totals / downsweep
-//     of common.cuh (no spin-waits; inputs read twice, 24 B per element
-//     against the 16 B minimum). Its Op is the same kind as K6's, so
-//     moving it to launch_scan_single is a one-line change.
-//   * The mask is packed into bit words by the launch ahead of the scan
-//     and staged in shared memory (16 KB at 2^17 paths), so a lookup is
-//     one shift; past 2^17 paths the words are read from global memory.
+//     resets too. What is left between them and the bound: past one
+//     wave, the look-back's waits on the predecessors in flight
+//     (PERF.md); at one wave (a few hundred partitions) about 4x the
+//     bound, not yet split between the memset, the launch and the
+//     look-back's rounds.
+//   * The mask: up to 8,192 paths each block ballots the raw mask into
+//     shared memory, so a call is the memset and the scan; past that a
+//     pack_mask launch packs it into bit words once and blocks stage
+//     them (16 KB at 2^17 paths), or past 2^17 paths read them from
+//     global memory. A lookup is one shift.
 //     The TPU's select tournament and one-hot MXU lookup have no place
 //     here, nor have its triangular-matmul cumsums and log-step shifts:
 //     a thread scans its 8 consecutive elements in registers and warp
@@ -119,7 +121,8 @@ struct SegScanOp {
   }
 };
 
-// K8: two plain sums.
+// K8: two plain sums. wc wraps as the reference's int32 cumsum does; w
+// counts selected runs, at most n < 2^31, so its top bit is free.
 struct RunAgg {
   int wc;  // selected run counts
   int w;   // selected runs
@@ -148,14 +151,28 @@ struct RunScanOp {
     *o0 = p.wc;
     *o1 = p.w;
   }
-  // Look-back descriptor (for launch_scan_single): the sums, then the
-  // flag.
+  // Look-back descriptor, tear-evident at 8-byte granularity: it assumes
+  // only that each aligned 8-byte half of the 16-byte access is seen
+  // whole (the H100 serves the v4 access in one piece; the PTX model
+  // promises less). Half 0 is (wc, w | P << 31), P = 1 for FLAG_PREFIX;
+  // half 1 is (flag, w). A read is ready only if half 1's flag is AGG or
+  // PREFIX, half 0's P bit says the same, and both halves hold the same
+  // w. So a read mixing the AGG and PREFIX stores never decodes (the P
+  // bits differ), nor one mixing the reset's zeros with a PREFIX store;
+  // one mixing the zeros with an AGG store decodes only if that AGG's w
+  // is 0, and then its wc is 0 too (no run selected), equal to the
+  // zeros.
   static __device__ __forceinline__ int4 to_desc(const Agg& a, int flag) {
-    return make_int4(a.wc, a.w, flag, 0);
+    const unsigned p = flag == FLAG_PREFIX;
+    return make_int4(a.wc, (int)((unsigned)a.w | p << 31), flag, a.w);
   }
   static __device__ __forceinline__ int from_desc(const int4& d, Agg& a) {
-    a = {d.x, d.y};
-    return d.z;
+    const unsigned p = (unsigned)d.y >> 31;
+    const int w = d.y & 0x7FFFFFFF;
+    a = {d.x, w};
+    const bool agree = desc_ready(d.z) && p == (unsigned)(d.z == FLAG_PREFIX)
+                       && w == d.w;
+    return agree ? d.z : 0;
   }
 };
 
@@ -182,13 +199,11 @@ __global__ void __launch_bounds__(THREADS) boundary_diff_kernel(
 
 extern "C" {
 
-// Bytes of scratch a scan of n elements needs: kind 0, pollen_seg_scan
-// (the single-pass layout: the ticket counter and one descriptor a
-// partition; `tpb` unused); kind 1, pollen_run_scan (one aggregate per
-// block at `tpb` tiles per block).
-long long pollen_scan_scratch_bytes(int kind, long long n, int tpb) {
-  if (kind == 0) return single_scan_scratch_bytes(n);
-  return scan_blocks(n, tpb) * (long long)sizeof(RunAgg);
+// Bytes of scratch a scan of n elements needs (pollen_seg_scan and
+// pollen_run_scan alike): the ticket counter and one descriptor a
+// partition.
+long long pollen_scan_scratch_bytes(long long n) {
+  return single_scan_scratch_bytes(n);
 }
 
 int pollen_seg_scan(const void* path, const void* run_start, long long n,
@@ -196,8 +211,7 @@ int pollen_seg_scan(const void* path, const void* run_start, long long n,
                     int n_paths, void* words, int n_words, void* scratch,
                     void* csum_w, void* csum_first, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
+  const int* w = static_cast<const int*>(words);
   SegScanOp op{static_cast<const int*>(path),
                static_cast<const int*>(run_start),
                static_cast<int*>(csum_w),
@@ -206,17 +220,17 @@ int pollen_seg_scan(const void* path, const void* run_start, long long n,
                w,
                n_words,
                head_carry};
-  const cudaError_t err = launch_scan_single(op, scratch, st);
+  const cudaError_t err =
+      launch_scan_single(op, mask, elem_bytes, n_paths, scratch, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int pollen_run_scan(const void* run_path, const void* run_count, long long n,
                     const void* mask, int elem_bytes, int n_paths,
-                    void* words, int n_words, int tpb, void* scratch,
-                    void* csum_wc, void* csum_w, void* stream) {
+                    void* words, int n_words, void* scratch, void* csum_wc,
+                    void* csum_w, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
+  const int* w = static_cast<const int*>(words);
   RunScanOp op{static_cast<const int*>(run_path),
                static_cast<const int*>(run_count),
                static_cast<int*>(csum_wc),
@@ -224,8 +238,9 @@ int pollen_run_scan(const void* run_path, const void* run_count, long long n,
                n,
                w,
                n_words};
-  launch_scan(op, tpb, static_cast<RunAgg*>(scratch), st);
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      launch_scan_single(op, mask, elem_bytes, n_paths, scratch, st);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // `c1`/`o1` may be null (one cumsum). bounds holds n + 1 entries.

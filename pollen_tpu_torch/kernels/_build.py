@@ -12,6 +12,12 @@ never loads a stale build; a build writes to a temporary name and
 renames it into place, so two processes building at once cannot load a
 half-written file.
 
+The library goes into ``pollen_tpu_torch/_build/`` beside the sources
+when that directory can be written (a checkout), else into a per-user
+cache directory, ``$XDG_CACHE_HOME`` or ``~/.cache``, then
+``pollen_tpu_torch/<hash of the package's path>`` (an installed
+package in a read-only site-packages).
+
 Every C entry point returns ``cudaGetLastError()`` right after its
 launch; :func:`check` turns a nonzero code into an exception (a refused
 launch never runs, and a later synchronise would not report it).
@@ -29,7 +35,7 @@ import tempfile
 
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-BUILD_DIR = PKG / "_build"
+LOCAL_BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -49,7 +55,8 @@ _L = ctypes.c_longlong
 _MASK = (_P, _I, _I, _P, _I)  # mask, elem_bytes, n_paths, words, n_words
 SIGNATURES = {
     "pollen_ell_tier": (_P, _I, _I, _I, _I, *_MASK, _P, _P, _P),
-    "pollen_cross_depth": (_P, _I, _I, _I, *_MASK, _P, _P, _P),
+    # matrix, rows, n_pad, nibble, raw mask (no words), depth, uniq, stream
+    "pollen_cross_depth": (_P, _I, _L, _I, _P, _I, _I, _P, _P, _P),
     "pollen_ell_flat": (_P, _I, _L, *_MASK, _P, _P, _P),  # slots, k, n_pad
     # probes.cu: mode, matrix, rows, n_pad, mask, flags, depth, uniq, stream
     "pollen_cross_probe": (_I, _P, _I, _I, *_MASK, _P, _P, _P, _P),
@@ -80,7 +87,7 @@ SIGNATURES = {
         _P,  # stream
     ),
     # scan.cu
-    "pollen_scan_scratch_bytes": (_I, _L, _I),  # kind, n, tiles per block
+    "pollen_scan_scratch_bytes": (_L,),  # n
     "pollen_seg_scan": (
         _P, _P, _L, _I,  # path, run_start, n, head_carry
         *_MASK,
@@ -89,7 +96,7 @@ SIGNATURES = {
     "pollen_run_scan": (
         _P, _P, _L,  # run_path, run_count, n
         *_MASK,
-        _I, _P, _P, _P, _P,  # tiles per block, scratch, csum_wc, csum_w, stream
+        _P, _P, _P, _P,  # scratch, csum_wc, csum_w, stream
     ),
     "pollen_boundary_diff": (
         _P, _P, _L, _P, _I, _P, _P, _P,  # c0, c1, len, bounds, n, o0, o1, stream
@@ -115,6 +122,25 @@ def _nvcc() -> str:
     )
 
 
+def _writable(path: pathlib.Path) -> bool:
+    """Whether ``path`` can be written, or created in its parent."""
+    if path.exists():
+        return os.access(path, os.W_OK | os.X_OK)
+    return os.access(path.parent, os.W_OK | os.X_OK)
+
+
+def build_dir() -> pathlib.Path:
+    """Where the library is built: ``LOCAL_BUILD_DIR`` if writable, else
+    the per-user cache directory for this package's path."""
+    if _writable(LOCAL_BUILD_DIR):
+        return LOCAL_BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache"
+    )
+    key = hashlib.sha256(str(PKG).encode()).hexdigest()[:16]
+    return pathlib.Path(cache) / "pollen_tpu_torch" / key
+
+
 def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
@@ -124,14 +150,14 @@ def library_path() -> pathlib.Path:
     for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libpollen_depth-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libpollen_depth-{h.hexdigest()[:16]}.so"
 
 
 def _compile(out: pathlib.Path) -> str:
     """One nvcc per source, all at once, then one link into ``out``.
     Returns the compilers' output; raises if a step fails."""
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs, procs = [], []
         for src in _sources():
             obj = pathlib.Path(tmp) / f"{src.stem}.o"
@@ -170,8 +196,8 @@ def load() -> ctypes.CDLL:
         return _lib
     out = library_path()
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
         try:
             build_log = _compile(pathlib.Path(tmp))

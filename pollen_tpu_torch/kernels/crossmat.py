@@ -11,8 +11,9 @@ path 2r in its low nibble, path 2r+1 in its high nibble) or as int8
 Clipped remainders live in the residual sidecar that the caller adds
 (ops/depth.py). Host constants and the plain versions are a jax-free
 port of pollen_tpu/kernels/crossmat.py; the CUDA kernels are
-``csrc/depth.cu`` pollen_cross_depth (one mask) and
-``csrc/depth_batch.cu`` pollen_cross_depth_batch (Q masks at once).
+``csrc/depth.cu`` pollen_cross_depth (one mask, one launch that reads
+the raw mask itself) and ``csrc/depth_batch.cu``
+pollen_cross_depth_batch (Q masks at once).
 """
 
 from __future__ import annotations
@@ -124,18 +125,18 @@ def masked_cross_depth(
         return (d, u) if uniq else d
     if cross.device.type != "cuda":
         raise ValueError(f"no kernel for device {cross.device}")
-    from .ellscan import alloc_outputs, kernel_mask
+    from .ellscan import kernel_mask
 
-    mask, elem, n_paths, n_words = kernel_mask(mask, cross.device)
-    *outs, words = alloc_outputs(
-        [n_pad] * (2 if uniq else 1), n_words, cross.device
-    )
+    mask, elem, n_paths, _ = kernel_mask(mask, cross.device)
+    outs = torch.empty(
+        (2 if uniq else 1, n_pad), dtype=torch.int32, device=cross.device
+    ).unbind(0)
     lib = _build.load()
     _build.check(
         "pollen_cross_depth",
         lib.pollen_cross_depth(
             cross.data_ptr(), rows, n_pad, int(nibble), mask.data_ptr(),
-            elem, n_paths, words.data_ptr(), n_words, outs[0].data_ptr(),
+            elem, n_paths, outs[0].data_ptr(),
             outs[1].data_ptr() if uniq else None,
             torch.cuda.current_stream(cross.device).cuda_stream,
         ),

@@ -7,8 +7,9 @@ index (one entry per distinct (segment, path) pair).
 Ingest already collapsed repeated crossings, so no first-occurrence
 logic is needed. A port of pollen_tpu/kernels/runscan.py
 ``masked_run_cumsums``; the wrapper launches ``csrc/scan.cu``
-pollen_run_scan on a CUDA tensor and runs the plain version only on a
-CPU tensor. Sums are int32 and wrap as the reference's do.
+pollen_run_scan (the single-pass look-back scan K6 runs on too) on a
+CUDA tensor and runs the plain version only on a CPU tensor. Sums are
+int32 and wrap as the reference's do.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .segscan import check_scan_inputs, lookup_mask, scan_scratch, tiles_per_block
+from .segscan import check_scan_inputs, lookup_mask, scan_scratch
 
 # Launch count of the CUDA kernel (plain-version calls do not count).
 launches = {"run_scan": 0}
@@ -52,14 +53,13 @@ def masked_run_cumsums(
     n = run_path.shape[0]
     mask, elem, n_paths, n_words = kernel_mask(mask, device)
     cswc, csw, words = alloc_outputs([n, n], n_words, device)
-    tpb = tiles_per_block(n)
-    scratch = scan_scratch(1, n, tpb, device)
+    scratch = scan_scratch(n, device)
     _build.check(
         "pollen_run_scan",
         _build.load().pollen_run_scan(
             run_path.data_ptr(), run_count.data_ptr(), n, mask.data_ptr(),
-            elem, n_paths, words.data_ptr(), n_words, tpb,
-            scratch.data_ptr(), cswc.data_ptr(), csw.data_ptr(),
+            elem, n_paths, words.data_ptr(), n_words, scratch.data_ptr(),
+            cswc.data_ptr(), csw.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         ),
     )

@@ -27,24 +27,8 @@ import torch
 
 from . import _build
 
-# csrc/common.cuh: elements per tile, and the blocks the three-launch
-# scan (K8) aims for before it packs several tiles into a block (4 per
-# SM of an H100).
-TILE = 256 * 8
-MAX_TILES_PER_BLOCK = 8
-TARGET_BLOCKS = 4 * 132
-
 # Launch count of the CUDA kernel (plain-version calls do not count).
 launches = {"seg_scan": 0}
-
-
-def tiles_per_block(n: int) -> int:
-    """Tiles each block of a three-launch scan over n elements takes:
-    one while the grid is small, up to MAX_TILES_PER_BLOCK on long
-    arrays (fewer block aggregates, and the mask words staged fewer
-    times)."""
-    tiles = -(-n // TILE)
-    return max(1, min(MAX_TILES_PER_BLOCK, tiles // TARGET_BLOCKS))
 
 
 def lookup_mask(mask: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -93,12 +77,11 @@ def check_scan_inputs(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
         raise ValueError(f"mask must be 1-D, got shape {tuple(mask.shape)}")
 
 
-def scan_scratch(kind: int, n: int, tpb: int, device) -> torch.Tensor:
-    """Scratch of one scan over n elements, sized by csrc/scan.cu: kind
-    0 the single-pass K6 (a ticket counter and one 16-byte look-back
-    descriptor a partition; its launch zeroes them), kind 1 the
-    three-launch K8 at ``tpb`` tiles per block."""
-    nbytes = _build.load().pollen_scan_scratch_bytes(kind, n, tpb)
+def scan_scratch(n: int, device) -> torch.Tensor:
+    """Scratch of one single-pass scan (K6 or K8) over n elements, sized
+    by csrc/scan.cu: a ticket counter and one 16-byte look-back
+    descriptor a partition; its launch zeroes them."""
+    nbytes = _build.load().pollen_scan_scratch_bytes(n)
     return torch.empty(-(-nbytes // 4), dtype=torch.int32, device=device)
 
 
@@ -125,7 +108,7 @@ def masked_depth_cumsums(
     n = path_sorted.shape[0]
     mask, elem, n_paths, n_words = kernel_mask(mask, device)
     csw, csf, words = alloc_outputs([n, n], n_words, device)
-    scratch = scan_scratch(0, n, 0, device)
+    scratch = scan_scratch(n, device)
     _build.check(
         "pollen_seg_scan",
         _build.load().pollen_seg_scan(

@@ -59,9 +59,9 @@ _PHASES = {
         "  int rounds = 0, polls = 0;\n"
         "  for (int end = part;; end -= 32) {\n"
         "    ++rounds;\n",
-    "      if (flag == 0) flag = Op::from_desc(ld_desc(desc + p), v);":
+    "      if (!desc_ready(flag)) flag = Op::from_desc(ld_desc(desc + p), v);":
         "      ++polls;\n"
-        "      if (flag == 0) flag = Op::from_desc(ld_desc(desc + p), v);",
+        "      if (!desc_ready(flag)) flag = Op::from_desc(ld_desc(desc + p), v);",
     "    if (pre) return run;  // partition 0 is always FLAG_PREFIX":
         "    if (pre) {\n"
         "      if (lane == 0) {\n"

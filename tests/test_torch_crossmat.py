@@ -11,6 +11,7 @@ import torch
 
 from pollen_tpu.kernels import crossmat as ref
 from pollen_tpu_torch.kernels import crossmat as port
+from pollen_tpu_torch.probes import kernel_ab
 
 torch.set_num_threads(1)
 
@@ -218,3 +219,81 @@ def test_cross_wrapper_checks_inputs():
         port.masked_cross_depth(flat[1:].view(64, 256), mask, nibble=True)
     with pytest.raises(ValueError, match="no kernel"):
         port.masked_cross_depth(a.to("meta"), mask.to("meta"), nibble=True)
+
+
+def _single_reference(a, mask, nibble, uniq=True):
+    """The reference's Pallas kernel (K2) in interpret mode, on the
+    matrix and mask zero-padded to a multiple of 8 paths (its tile
+    rule) and the mask cut or padded to the matrix's paths: extra zero
+    paths change no sum."""
+    rows, n_pad = a.shape
+    p = rows * 2 if nibble else rows
+    p8 = -(-p // 8) * 8
+    a8 = np.zeros((p8 // 2 if nibble else p8, n_pad), a.dtype)
+    a8[:rows] = a
+    m8 = np.zeros(p8, np.int32)
+    m8[: min(p, mask.shape[0])] = mask[:p]
+    return ref.masked_cross_depth(
+        jnp.asarray(a8), jnp.asarray(m8), nibble=nibble, interpret=True,
+        uniq=uniq,
+    )
+
+
+# The one-launch kernel's edges: byte rows that are not a multiple of
+# the 8 rows a thread has in flight (1, 13, 33), one 128-column tile,
+# ragged tiles (384, 1152), masks shorter and longer than the paths.
+@pytest.mark.parametrize("nibble", [True, False])
+@pytest.mark.parametrize("rows,n_pad", [(1, 128), (13, 128), (13, 1152), (33, 384)])
+def test_cross_odd_shapes_match_pallas_interpret(nibble, rows, n_pad):
+    rng = np.random.default_rng(7 * rows + n_pad + nibble)
+    p = 2 * rows if nibble else rows
+    a = _matrix(rng, p + (p % 2), n_pad, nibble)[:rows]
+    for plen in (p, max(p - 3, 1), p + 40):
+        mask = (rng.random(plen) < rng.random()).astype(np.int32)
+        d_r, u_r = _single_reference(a, mask, nibble)
+        d_p, u_p = port.masked_cross_depth(
+            torch.from_numpy(a), torch.from_numpy(mask), nibble=nibble
+        )
+        assert np.array_equal(np.asarray(d_r), d_p.numpy())
+        assert np.array_equal(np.asarray(u_r), u_p.numpy())
+        d_only = port.masked_cross_depth(
+            torch.from_numpy(a), torch.from_numpy(mask), nibble=nibble,
+            uniq=False,
+        )
+        d_ref_only = _single_reference(a, mask, nibble, uniq=False)
+        assert np.array_equal(np.asarray(d_ref_only), d_only.numpy())
+
+
+@pytest.mark.parametrize("nibble", [True, False])
+def test_cross_at_the_clip(nibble):
+    """Every cell at its clip (15 nibble, 127 int8) under the all-ones
+    mask: depth = clip * P and uniq = P exactly, as in the reference,
+    with and without uniq."""
+    rows = 13 if nibble else 26
+    p = 2 * rows if nibble else rows
+    clip = port.CLIP_NIBBLE if nibble else port.CLIP
+    a = np.full((rows, 256), 0xFF if nibble else clip,
+                np.uint8 if nibble else np.int8)
+    mask = np.ones(p, np.int32)
+    d_r, u_r = _single_reference(a, mask, nibble)
+    d_p, u_p = port.masked_cross_depth(
+        torch.from_numpy(a), torch.from_numpy(mask), nibble=nibble
+    )
+    assert bool((d_p == clip * p).all()) and bool((u_p == p).all())
+    assert np.array_equal(np.asarray(d_r), d_p.numpy())
+    assert np.array_equal(np.asarray(u_r), u_p.numpy())
+    d_only = port.masked_cross_depth(
+        torch.from_numpy(a), torch.from_numpy(mask), nibble=nibble, uniq=False
+    )
+    assert np.array_equal(np.asarray(d_r), d_only.numpy())
+
+
+@pytest.mark.parametrize("variant", sorted(kernel_ab.VARIANTS))
+def test_kernel_ab_patches_apply_to_the_shipped_sources(variant):
+    """Each probe variant's patch finds its target in the shipped kernel
+    source exactly once (the probe builds the patched copy on the card)."""
+    for rel, patch in kernel_ab.VARIANTS[variant].items():
+        text = (kernel_ab.PKG / rel).read_text()
+        for old in patch:
+            assert text.count(old) == 1, (variant, rel, old)
+    assert bool(kernel_ab.VARIANTS[variant]) == (variant != "shipped")

@@ -10,6 +10,7 @@ the reference does.
 """
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -232,3 +233,35 @@ def test_port_grammar_matches_reference(argv):
     del got["device"]
     assert got == vars(ref)
     assert port_cli._needs_masked_index(port) == ref_cli._needs_masked_index(ref)
+
+
+# The reference writes -o/-O after every command (its _store); the port
+# has no writer yet, so it refuses them: exit 1, "not ported" on stderr,
+# no file written, nothing answered.
+@pytest.mark.parametrize("flag", ["-o", "-O"])
+def test_cli_refuses_output_flags(flag, tmp_path, capsys):
+    out_file = tmp_path / "out.graph"
+    stdout = io.StringIO()
+    with pytest.raises(SystemExit) as exc:
+        port_cli.main(
+            ["--device", "cpu", "-I", str(GRAPH_DIR / "loops.gfa"), flag,
+             str(out_file), "depth"],
+            stdin=io.StringIO(), stdout=stdout,
+        )
+    assert exc.value.code == 1
+    assert "not ported" in capsys.readouterr().err
+    assert not out_file.exists() and stdout.getvalue() == ""
+
+
+def test_serve_refuses_an_output_request(tmp_path):
+    out_file = tmp_path / "out.flatgfa"
+    stdout = io.StringIO()
+    port_cli.main(
+        ["--device", "cpu", "-I", str(GRAPH_DIR / "loops.gfa"), "serve"],
+        stdin=io.StringIO(f"depth -d\n-o {out_file} depth -d\ndepth -d\n"),
+        stdout=stdout,
+    )
+    frames = [ln for ln in stdout.getvalue().splitlines() if ln.startswith("##end")]
+    assert frames[0] == frames[2] == "##end\tok"
+    assert frames[1].startswith("##end\terror\t") and "not ported" in frames[1]
+    assert not out_file.exists()

@@ -166,14 +166,48 @@ def test_scan_ladder_patches_apply_to_the_shipped_header(variant):
         scan_ladder.patched(text, {"no such line in the header": ""})
 
 
-@pytest.mark.parametrize("n", [0, 1, 2048, 2049, 2**25])
-def test_tiles_per_block_bounds(n):
-    """The three-launch scan's tiles per block (K8): at least 1, at most
-    MAX_TILES_PER_BLOCK, and enough blocks to cover n."""
-    tpb = segscan.tiles_per_block(n)
-    assert 1 <= tpb <= segscan.MAX_TILES_PER_BLOCK
-    tiles = -(-n // segscan.TILE)
-    assert tpb == 1 or tiles // tpb >= segscan.TARGET_BLOCKS
+def test_scan_sources_have_only_the_single_pass():
+    """K6 and K8 both launch through launch_scan_single; the three-launch
+    template is gone; the look-back polls until a descriptor decodes as
+    AGG or PREFIX (any other flag is not ready)."""
+    csrc = scan_ladder.PKG / "csrc"
+    common = (csrc / "common.cuh").read_text()
+    scan = (csrc / "scan.cu").read_text()
+    for gone in ("scan_reduce", "scan_totals", "scan_down", "scan_blocks",
+                 "launch_scan(", "TOTALS_THREADS"):
+        assert gone not in common and gone not in scan, gone
+    assert scan.count("launch_scan_single(op, mask,") == 2
+    assert "while (__any_sync(0xFFFFFFFFu, !desc_ready(flag)))" in common
+
+
+# Weighted sums that pass 2^31 and wrap, as the reference's int32 sums
+# do: counts of 2^18 to 2^20 over two BLOCKs of runs, a dense and a sparse
+# mask; and the all-ones mask on one path with equal counts.
+@pytest.mark.parametrize("case", ["dense", "sparse", "one path"])
+def test_run_scan_wraps_like_reference(case):
+    rng = np.random.default_rng(len(case))
+    r = 2 * BLOCK
+    if case == "one path":
+        run_path = np.zeros(r, np.int32)
+        run_count = np.full(r, 2**17 + 3, np.int32)
+        mask = np.zeros(128, np.int32)
+        mask[0] = 1
+    else:
+        run_path = rng.integers(0, 100, r).astype(np.int32)
+        run_count = rng.integers(2**18, 2**20, r).astype(np.int32)
+        mask = padded_mask(100, 5)
+        if case == "sparse":
+            mask[:100] &= rng.random(100) < 0.2
+    ref = ref_run_cumsums(
+        jnp.asarray(run_path), jnp.asarray(run_count), jnp.asarray(mask),
+        interpret=True,
+    )
+    port = runscan.masked_run_cumsums(t(run_path), t(run_count), t(mask))
+    for a, b in zip(ref, port):
+        assert_equal(a, b)
+    wide = np.cumsum(np.where(mask[run_path] > 0, run_count, 0).astype(np.int64))
+    assert wide[-1] >= 2**31  # the weighted sum wraps
+    assert np.array_equal(port[0].numpy(), wide.astype(np.int32))
 
 
 def test_seg_scan_refuses_a_negative_head_carry():
