@@ -21,7 +21,12 @@ and then:
    33, 100 and 2,500 by 128 to 4,736 columns, masks shorter and longer
    than the paths, int8 over -128..127 and a matrix 4 bytes off 16, each
    with and without uniq (and at full size on chr8_third's 256 MiB
-   matrix under a seeded and the all-ones mask, before its timing);
+   matrix under a seeded and the all-ones mask, before its timing); K1
+   and K4 on random tiers at P = 1 to 40,000 paths (K4's packing launch
+   past 4,096), the heavy block alone, 1-3 tiers (one of 9 words), tiers
+   alone, Q = 1 to 65, the heavy clip, a heavy block 4 bytes off 16, 20
+   back-to-back calls and CUDA-graph replays; and cuobjdump's SASS of
+   K4 and K5 must hold int8 tensor-core instructions (IMMA);
 2. drives the main paths through the user's entry points: ``fgfa-torch
    --device cuda depth -d``, ``depth -d -s`` and ``depth -d -S`` on
    every fixture, byte for byte against the goldens, and a ``serve``
@@ -68,9 +73,12 @@ wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
 wall, its bound and its library call (wall and replay): one PyTorch
 call of the same function (K2, K5: a product by [A | min(A, 1)]; K6,
-K8: two cumsums), where there is one. K2 and K8 have a second row at
-HBM scale (chr8_third's crossing matrix; wide_p2e17's run index), and
-the profiler must show K6 and K8 each as one single-pass scan launch.
+K8: two cumsums; K1, K3, K4, K9: one torch.sparse.mm of CSR counts by
+the masks, ``probes/yardstick.py``), where there is one. K2 and K8 have
+a second row at HBM scale (chr8_third's crossing matrix; wide_p2e17's
+run index), K1 and K4 one at chr8_third's index, and the profiler must
+show K6 and K8 each as one single-pass scan launch, K1 and K4 each as
+their one kernel (no packing launch ahead).
 Exits nonzero
 at the first failed check. The line before the last is one JSON object
 with each kernel's launches, error, times, bound and library call
@@ -117,6 +125,13 @@ KERNELS = {
     "run_scan (K8), wide_p2e17": (
         SRC_SCAN, "pollen_tpu/kernels/runscan.py:65", "run_scan"
     ),
+    # K1 and K4 timed a second time at chr8_third's index (three tiers).
+    "ell_splitn (K1), chr8_third": (
+        SRC, "pollen_tpu/kernels/ellscan.py:539", "ell_splitn"
+    ),
+    "ell_splitn_batch (K4), chr8_third": (
+        SRC_BATCH, "pollen_tpu/kernels/ellscan.py:882", "ell_splitn_batch"
+    ),
     "ell_flat (K9)": (SRC, "pollen_tpu/kernels/ellscan.py:326", "ell_flat"),
     "cross_probe_raw (K10)": (
         SRC_PROBES, "probes/crossmat_floor.py:49", "cross_probe_raw"
@@ -134,8 +149,9 @@ KERNELS = {
 # The kernels of each main path: the single query, the batch, the scan
 # family (single queries and batches past the ELL and matrix budgets).
 SINGLE_PATH = ("ell_splitn (K1)", "cross (K2)", "ell_tier (K3)",
-               "cross (K2), chr8_third matrix")
-BATCH_PATH = ("ell_splitn_batch (K4)", "cross_batch (K5)")
+               "cross (K2), chr8_third matrix", "ell_splitn (K1), chr8_third")
+BATCH_PATH = ("ell_splitn_batch (K4)", "cross_batch (K5)",
+              "ell_splitn_batch (K4), chr8_third")
 SCAN_PATH = ("seg_scan (K6)", "boundary (K7)", "run_scan (K8)",
              "run_scan (K8), wide_p2e17")
 # The flat-ELL path (build_ell, then masked_ell_depth) and the probe
@@ -201,6 +217,26 @@ def card_line() -> str:
         check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def check_sass(lib: pathlib.Path):
+    """The int8 tensor-core products are in the built code: cuobjdump's
+    SASS of every instance of K4's kernel and of K5's holds IMMA."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        for kernel in ("ell_splitn_batch_kernel", "cross_mma_kernel"):
+            if kernel in name:
+                found.setdefault(kernel, []).append(fn.count("IMMA"))
+    print(f"cuobjdump -sass: IMMA instructions per instance {found}",
+          flush=True)
+    need(len(found) == 2 and all(min(n) > 0 for n in found.values()),
+         f"K4 or K5 built without int8 tensor-core products: {found}")
 
 
 def cuda_ms(fn, reps=30, warm=5):
@@ -478,6 +514,158 @@ def phase_kernels(errs: Errors):
           "4 masks each, batches at Q = "
           f"{', '.join(map(str, KERNEL_QS))} (tolerance 0: exact integer "
           "counts)", flush=True)
+
+
+# Edge checks of K1 and K4: paths (1, 33; 256 and 300 around pack16's
+# limit; 4097, one past the 4096 whose query bits K4's blocks build
+# themselves; 40000, path ids past 2^15) and K4's batch sizes (one
+# tensor-core row tile is 16 queries, a chunk 32).
+SPLIT_PS = (1, 33, 256, 300, 4097, 40000)
+SPLIT_QS = (1, 7, 8, 31, 32, 33, 65)
+
+
+def split_tier(rng, p, k, pack16):
+    """A random tall tier of one row group: k stored words a column
+    (pack16: two path<<8|count halves each), paths below p, counts up
+    to the layout's limit, 30% of the slots empty."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import ellscan as ell
+
+    n = ell.SUB * ell.TALL_W
+    slots = 2 * k if pack16 else k
+    v = (rng.integers(0, p, (slots, n)) << 16) | rng.integers(
+        1, 256 if pack16 else 65536, (slots, n))
+    v[rng.random(v.shape) < 0.3] = 0
+    flat = (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    if pack16:
+        flat = ell.pair_ell16(flat)
+    return torch.from_numpy(ell.pack_ell_tall(flat)).cuda()
+
+
+def check_split_repeats(errs: Errors, tiers, heavy, m, ms, ks, p16):
+    """K1 and K4: 20 back-to-back calls, then two replays of a CUDA graph
+    that captured one call (outputs wiped between), each equal to plain."""
+    import torch
+
+    from pollen_tpu_torch.kernels import ellscan as ell
+
+    for name, fn, plain, mask in (
+        ("ell_splitn (K1)", ell.masked_ell_splitn_depth,
+         ell.masked_ell_splitn_depth_plain, m),
+        ("ell_splitn_batch (K4)", ell.masked_ell_splitn_depth_batch,
+         ell.masked_ell_splitn_depth_batch_plain, ms),
+    ):
+        call = functools.partial(fn, tiers, heavy, mask, ks, pack16=p16)
+        want = plain(tiers, heavy, mask, ks, pack16=p16)
+        outs = [call() for _ in range(20)]
+        for i, got in enumerate(outs):
+            errs.compare(name, got, want, f"back-to-back call {i}")
+        del outs
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = call()
+        for i in range(2):
+            for c in got:
+                if c is not None:
+                    c.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            errs.compare(name, got, want, f"CUDA graph replay {i}")
+        del graph, got
+
+
+def phase_kernels_split(errs: Errors):
+    """Phase 1 (K1's and K4's edges), each call against its plain
+    version, tolerance 0: random tiers at P = SPLIT_PS paths (pack16 and
+    32-bit slots up to 256 paths, 32-bit past; masks of bytes and of
+    int32) in five shapes (no tier columns, so the heavy block alone; one
+    tier; two; three with one of 9 stored words, past the 8 a chunk holds;
+    the three tiers alone), K4 at Q = SPLIT_QS; every heavy cell at its
+    clip (15) under all-ones masks; a heavy block 4 bytes off a 16-byte
+    boundary; 20 back-to-back calls and CUDA-graph replays."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import ellscan as ell
+
+    rng = np.random.default_rng(7)
+    no_heavy = torch.zeros((0, 0), dtype=torch.uint8, device="cuda")
+    n_heavy = 384  # three tensor-core tiles; one K2 tile of 8 row groups
+
+    def check(tiers, heavy, ks, p16, m, ms, what):
+        for name, fn, plain, mask in (
+            ("ell_splitn (K1)", ell.masked_ell_splitn_depth,
+             ell.masked_ell_splitn_depth_plain, m),
+            ("ell_splitn_batch (K4)", ell.masked_ell_splitn_depth_batch,
+             ell.masked_ell_splitn_depth_batch_plain, ms),
+        ):
+            errs.compare(name, fn(tiers, heavy, mask, ks, pack16=p16),
+                         plain(tiers, heavy, mask, ks, pack16=p16), what)
+
+    for p in SPLIT_PS:
+        rows = -(-p // 2)
+        heavy = torch.from_numpy(
+            rng.integers(0, 256, (rows, n_heavy)).astype(np.uint8)).cuda()
+        for p16 in (True, False) if p <= 256 else (False,):
+            dtype = torch.bool if p16 else torch.int32
+            t1, t3, t9 = (split_tier(rng, p, k, p16) for k in (1, 3, 9))
+            shapes = (
+                ("heavy block alone", [t1[:0]], heavy, [1]),
+                ("one tier", [t1], heavy, [1]),
+                ("two tiers", [t1, t3], heavy, [1, 3]),
+                ("three tiers, k = 9", [t1, t3, t9], heavy, [1, 3, 9]),
+                ("three tiers alone", [t1, t3, t9], no_heavy, [1, 3, 9]),
+            )
+            for what, tiers, h, ks in shapes:
+                for q in SPLIT_QS:
+                    ms = torch.from_numpy(
+                        rng.random((q, p)) < rng.random((q, 1))).to(dtype).cuda()
+                    check(tiers, h, ks, p16, ms[0], ms,
+                          f"P={p} pack16={p16} {what} Q={q}")
+        if p == 300:
+            repeat = ([t1, t3, t9], heavy, [1, 3, 9])
+    # Every heavy cell at its clip under all-ones masks: depth 15 P and
+    # uniq P in every heavy column, for both kernels.
+    rows, p = 150, 300
+    clip = torch.full((rows, 1024), 0xFF, dtype=torch.uint8, device="cuda")
+    t1 = split_tier(rng, p, 1, False)
+    for q in (1, 33):
+        ones = torch.ones((q, p), dtype=torch.int32, device="cuda")
+        check([t1], clip, [1], False, ones[0], ones, f"heavy clip, Q={q}")
+        dh, uh = ell.masked_ell_splitn_depth_batch([t1], clip, ones, [1])[-2:]
+        need(bool((dh == 15 * p).all()) and bool((uh == p).all()),
+             f"K4 heavy clip Q={q}: depth {int(dh.max())}, uniq {int(uh.max())}")
+    dh, uh = ell.masked_ell_splitn_depth([t1], clip, ones[0], [1])[-2:]
+    need(bool((dh == 15 * p).all()) and bool((uh == p).all()),
+         f"K1 heavy clip: depth {int(dh.max())}, uniq {int(uh.max())}")
+    # A heavy block 4 bytes off a 16-byte boundary (4-byte loads, 4-byte
+    # copies into shared memory).
+    flat = torch.from_numpy(
+        rng.integers(0, 256, rows * n_heavy + 4).astype(np.uint8)).cuda()
+    off = flat[4:].view(rows, n_heavy)
+    need(off.data_ptr() % 16 == 4, "expected a heavy block 4 bytes off 16")
+    for q in (1, 40):
+        ms = torch.from_numpy(rng.random((q, p)) < 0.5).cuda()
+        check([t1], off, [1], False, ms[0], ms,
+              f"heavy block 4 bytes off 16, Q={q}")
+    tiers, heavy, ks = repeat
+    ms = torch.from_numpy(rng.random((33, 300)) < 0.5).cuda()
+    check_split_repeats(errs, tiers, heavy, ms[0], ms, ks, False)
+    torch.cuda.synchronize()
+    print("phase 1 (K1, K4): random tiers at P = "
+          f"{', '.join(map(str, SPLIT_PS))} (pack16 and 32-bit), the heavy "
+          "block alone, 1-3 tiers (one of 9 words), tiers alone, Q = "
+          f"{', '.join(map(str, SPLIT_QS))}; the heavy clip under all-ones "
+          "masks (15 P, P); a heavy block 4 bytes off 16; 20 back-to-back "
+          "calls and two CUDA-graph replays: all equal plain (tolerance 0)",
+          flush=True)
 
 
 def phase_kernels_cross_batch(errs: Errors):
@@ -956,22 +1144,13 @@ def phase_timing(graphs: dict, batch: dict, errs: Errors, card: str) -> dict:
     times = {}
     _, dg, _ = graphs["bench"]
     m = torch.from_numpy(rng.random(dg.num_paths) < 0.5).cuda()
-    tiers = [t for t in (dg.cross_ell, dg.cross_ell2, dg.cross_ell3) if t.numel()]
-    ks = [k for k in (dg.ell_k, dg.ell_k2, dg.ell_k3) if k]
-    args = (tiers, dg.ell_heavy, m, ks)
-    p16 = bool(dg.ell_pack16)
-    slots = sum(t.numel() for t in tiers) * (2 if p16 else 1)
-    cols = sum(t.numel() // k for t, k in zip(tiers, ks)) + dg.ell_heavy.shape[1]
-    tier_bytes = 4 * sum(t.numel() for t in tiers) + dg.ell_heavy.numel()
-    cells = 2 * dg.ell_heavy.numel()  # nibble: two paths a byte
-    times["ell_splitn (K1)"] = (
-        lambda: ell.masked_ell_splitn_depth(*args, pack16=p16),
-        lambda: ell.masked_ell_splitn_depth_plain(*args, pack16=p16),
-        "bench",
-        bound(tier_bytes + dg.num_paths + 8 * cols, core_ops=4 * slots,
-              tensor_ops=4 * cells),
-        None,
-    )
+    m32 = torch.from_numpy(batch_masks(dg.num_paths, rng)).cuda()
+    times.update(split_rows(errs, dg, m, m32, "bench", ""))
+    _, dg8, _ = graphs["chr8_third"]
+    m8 = torch.from_numpy(rng.random(dg8.num_paths) < 0.5).cuda()
+    m8_32 = torch.from_numpy(batch_masks(dg8.num_paths, rng)).cuda()
+    times.update(split_rows(errs, dg8, m8, m8_32, "chr8_third",
+                            ", chr8_third"))
     _, dgu, _ = graphs["unfused"]
     mu = torch.from_numpy(rng.random(dgu.num_paths) < 0.5).cuda()
     mpu = torch.zeros(dgu.ell_heavy.shape[0] * 2, dtype=torch.int32,
@@ -992,26 +1171,16 @@ def phase_timing(graphs: dict, batch: dict, errs: Errors, card: str) -> dict:
     )
     p16u = bool(dgu.ell_pack16)
     tu = dgu.cross_ell
+    tier_call = functools.partial(ell.masked_ell_depth_tall, tu, mu, dgu.ell_k,
+                                  p16u)
     times["ell_tier (K3)"] = (
-        lambda: ell.masked_ell_depth_tall(tu, mu, dgu.ell_k, p16u),
+        tier_call,
         lambda: ell.masked_ell_depth_tall_plain(tu, mu, dgu.ell_k, p16u),
         "unfused tier 1",
         bound(4 * tu.numel() + dgu.num_paths + 8 * (tu.numel() // dgu.ell_k),
               core_ops=4 * tu.numel() * (2 if p16u else 1)),
-        None,
-    )
-    m32 = torch.from_numpy(batch_masks(dg.num_paths, rng)).cuda()
-    times["ell_splitn_batch (K4)"] = (
-        lambda: ell.masked_ell_splitn_depth_batch(
-            tiers, dg.ell_heavy, m32, ks, pack16=p16
-        ),
-        lambda: ell.masked_ell_splitn_depth_batch_plain(
-            tiers, dg.ell_heavy, m32, ks, pack16=p16
-        ),
-        "bench, Q=32",
-        bound(tier_bytes + 32 * dg.num_paths + 8 * 32 * cols,
-              core_ops=4 * slots * 32, tensor_ops=4 * cells * 32),
-        None,
+        ell_library("ell_tier (K3)", tier_call, mu, dgu.num_paths,
+                    tiers=[tu], ks=[dgu.ell_k], pack16=p16u),
     )
     dgc = batch["bench_cross"][1]
     nib = dgc.cross_nibble
@@ -1043,6 +1212,73 @@ def phase_timing(graphs: dict, batch: dict, errs: Errors, card: str) -> dict:
         library,
     )
     return time_kernels(times, card)
+
+
+def ell_library(name, kern, masks, n_paths, **index):
+    """The ELL family's one-call form (``probes.yardstick``): one
+    torch.sparse.mm of the CSR counts of the cells the kernel reads by
+    the float32 masks, both made ahead of time; first held against the
+    kernel's outputs (exact: sums below 2^24)."""
+    import torch
+
+    from pollen_tpu_torch.probes import yardstick as ys
+
+    csr, cols = ys.ell_csr(n_paths, **index)
+    mt = ys.masks_for(masks)
+    d, u = ys.depth_uniq(ys.ell_yardstick(csr, mt), cols)
+    got = [x for x in kern() if x is not None]
+    want_d = torch.cat([x if x.dim() == 2 else x[None] for x in got[0::2]], 1)
+    want_u = torch.cat([x if x.dim() == 2 else x[None] for x in got[1::2]], 1)
+    need(torch.equal(d, want_d) and torch.equal(u, want_u),
+         f"{name}: the sparse-product yardstick differs from the kernel")
+    print(f"{name}: yardstick torch.sparse.mm, CSR float32 {tuple(csr.shape)} "
+          f"with {csr.values().numel()} entries x ({n_paths}, "
+          f"{mt.shape[1]}) masks", flush=True)
+    return functools.partial(ys.ell_yardstick, csr, mt)
+
+
+def split_rows(errs: Errors, dg, m, m32, where, suffix) -> dict:
+    """K1 under one mask and K4 under the Q = 32 masks on a graph's split
+    ELL index: (kernel, plain, where, bound, library) rows, after holding
+    each call against its plain version and checking that the profiler
+    sees it as its one kernel launch (no packing launch ahead)."""
+    from pollen_tpu_torch.kernels import ellscan as ell
+
+    tiers = [t for t in (dg.cross_ell, dg.cross_ell2, dg.cross_ell3) if t.numel()]
+    ks = [k for k in (dg.ell_k, dg.ell_k2, dg.ell_k3) if k]
+    heavy, p16, q = dg.ell_heavy, bool(dg.ell_pack16), m32.shape[0]
+    index = dict(tiers=tiers, ks=ks, pack16=p16, heavy=heavy)
+    slots = sum(t.numel() for t in tiers) * (2 if p16 else 1)
+    cols = sum(t.numel() // k for t, k in zip(tiers, ks)) + heavy.shape[1]
+    in_bytes = 4 * sum(t.numel() for t in tiers) + heavy.numel()
+    cells = 2 * heavy.numel()  # nibble: two paths a byte
+    rows = {}
+    for name, kern, plain, masks, n_q, kernel in (
+        (f"ell_splitn (K1){suffix}",
+         functools.partial(ell.masked_ell_splitn_depth, tiers, heavy, m, ks,
+                           pack16=p16),
+         functools.partial(ell.masked_ell_splitn_depth_plain, tiers, heavy, m,
+                           ks, pack16=p16),
+         m, 1, "ell_splitn_kernel"),
+        (f"ell_splitn_batch (K4){suffix}",
+         functools.partial(ell.masked_ell_splitn_depth_batch, tiers, heavy, m32,
+                           ks, pack16=p16),
+         functools.partial(ell.masked_ell_splitn_depth_batch_plain, tiers,
+                           heavy, m32, ks, pack16=p16),
+         m32, q, "ell_splitn_batch_kernel"),
+    ):
+        errs.compare(name, kern(), plain(), f"{where}, Q={n_q}")
+        prof = device_profile(kern, reps=5)
+        print(f"{name} call at {where}: {describe_profile(prof)}", flush=True)
+        need(not prof or set(prof) == {kernel},
+             f"{name} is not one {kernel} launch: {sorted(prof)}")
+        rows[name] = (
+            kern, plain, where if n_q == 1 else f"{where}, Q={n_q}",
+            bound(in_bytes + n_q * dg.num_paths + 8 * n_q * cols,
+                  core_ops=4 * slots * n_q, tensor_ops=4 * cells * n_q),
+            ell_library(name, kern, masks, dg.num_paths, **index),
+        )
+    return rows
 
 
 def both_products(a):
@@ -1808,12 +2044,13 @@ def phase_flat_probe_timing(graphs: dict, flat: dict, probes: dict,
               f"{' '.join(f'{x:.2f}' for x in walls)} us)", flush=True)
         del tall
     k, n_pad = slots.shape
+    flat_call = functools.partial(ell.masked_ell_depth, slots, m)
     times = {"ell_flat (K9)": (
-        functools.partial(ell.masked_ell_depth, slots, m),
+        flat_call,
         functools.partial(ell.masked_ell_depth_plain, slots, m),
         f"chr8_third flat ELL k={k}, {n_pad} columns",
         bound(4 * k * n_pad + 8 * n_pad + g8.num_paths, core_ops=4 * k * n_pad),
-        None,
+        ell_library("ell_flat (K9)", flat_call, m, g8.num_paths, flat=slots),
     )}
     out = time_kernels(times, card)
 
@@ -1947,9 +2184,11 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
+    check_sass(_build.library_path())
 
     errs = Errors()
     phase_kernels(errs)
+    phase_kernels_split(errs)
     phase_kernels_cross_batch(errs)
     phase_kernels_cross(errs)
     phase_kernels_scan(errs)

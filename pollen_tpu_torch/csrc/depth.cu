@@ -1,7 +1,7 @@
 // Masked segment depth over the resident ELL / crossing-matrix indexes,
-// written for Hopper (sm_90a). Four entry points; K1, K3 and K9 read
-// mask bit words packed ahead of them, K1 and K3 share the tier
-// function, and K2 has its own kernel:
+// written for Hopper (sm_90a). Four entry points; K3 and K9 read mask
+// bit words packed ahead of them, K2 and K1 read the raw mask, and K1
+// runs K2's tiles on its heavy block:
 //
 //   pollen_ell_tier     one tall tier of ELL slots. Replaces the TPU
 //                       kernel pollen_tpu/kernels/ellscan.py _kernel_tall
@@ -11,8 +11,8 @@
 //                       pollen_tpu/kernels/crossmat.py _kernel (K2),
 //                       depth-only variant included.
 //   pollen_ell_splitn   up to three tier phases plus the heavy phase in
-//                       ONE launch. Replaces pollen_tpu/kernels/
-//                       ellscan.py _kernel_splitn (K1).
+//                       ONE launch, no packing launch ahead. Replaces
+//                       pollen_tpu/kernels/ellscan.py _kernel_splitn (K1).
 //   pollen_ell_flat     one tier in the flat (K, N_pad) layout of
 //                       build_ell. Replaces pollen_tpu/kernels/ellscan.py
 //                       _kernel (K9).
@@ -23,14 +23,14 @@
 // by launch latency: the whole bench-shape index is ~2 MB and sits in
 // L2). The design keeps the bytes minimal and the accesses coalesced:
 //
-//   * The query mask is packed into bit words (path p -> bit p%32 of
-//     word p/32) by a one-ballot-per-warp launch ahead of the kernel
-//     (K1, K3, K9), so the caller hands over the raw 0/1 mask and pays
-//     one host call.
-//     Each block stages the words in shared memory (8 KB at 2^16 paths)
-//     and looks a path's bit up directly. The TPU kernel's select
-//     tournament over scalar words has no place here.
-//   * Tier function: one thread per output column. A thread reads its
+//   * K3 and K9 take the query mask packed into bit words (path p ->
+//     bit p%32 of word p/32) by a one-ballot-per-warp launch ahead of
+//     the kernel, so the caller hands over the raw 0/1 mask and pays one
+//     host call. Each block stages the words in shared memory (8 KB at
+//     2^16 paths) and looks a path's bit up directly. The TPU kernel's
+//     select tournament over scalar words has no place here. K1 and K2
+//     read the raw mask themselves (below).
+//   * K3's tier function: one thread per output column. A thread reads its
 //     K slot words at tall[(g*K + kk)*SUB + r, c]: neighbouring threads
 //     read neighbouring words, so every load is one coalesced 128-byte
 //     line per warp, and each slot word is read exactly once. Output
@@ -42,13 +42,6 @@
 //     TPU gave this layout up because its (1, width) stores pad to 8
 //     sublanes; on the GPU it is coalesced as it stands. Any n_pad works
 //     (the last block masks its ragged edge).
-//   * Heavy function (K1's heavy phase): byte row r holds path 2r in
-//     its low nibble and path 2r+1 in its high nibble (int8 layout: row
-//     = path). A block covers 128 columns; each thread reads 4 columns
-//     as one 32-bit word and walks every 8th row, and the 8 row groups
-//     are summed in shared memory. The row loop is warp-uniform, so rows
-//     whose paths are all unselected are skipped without divergence and
-//     their bytes are never read. Sums are exact int32 (no bf16 detour).
 //   * K2 (cross_kernel) is its own design, one launch a call:
 //       - Mask: each block reads the raw 0/1 mask itself and compacts the
 //         rows with a selected path into a list in shared memory (row,
@@ -84,9 +77,24 @@
 //     What bounds it: bytes, the matrix read once at 3.35 TB/s; about
 //     3-4 integer operations a byte stay under that at the card's
 //     integer rate.
-//   * The fused launch replaces the TPU's joint/sequential grid: blocks
-//     [0, tier blocks) run the tier phases, the blocks after them the
-//     heavy phase, all in flight together on the 132 SMs.
+//   * K1 (ell_splitn_kernel) is one launch on a persistent grid (at most
+//     the blocks the card holds, each walking many tiles), heavy tiles
+//     first, so the longest tiles start first:
+//       - Heavy tiles are K2's tiles (cross_tile: the selected-row list,
+//         16-byte row loads 8 rows in flight, SIMD byte lanes, row groups
+//         at small blocks) on the heavy block, and a block stages the row
+//         list once for all its heavy tiles.
+//       - Tier tiles: a thread owns 4 adjacent columns of a tall row, so
+//         each slot word is one 16-byte load (the tall layout is
+//         contiguous in c), issued before anything waits on the mask,
+//         and the outputs leave as 16-byte stores. On reaching its first
+//         tier tile a block packs the raw mask into bit words in shared
+//         memory (one ballot a warp, into the heavy tiles' reduction
+//         buffer, free by then) and keeps them for all its tier tiles:
+//         the mask is read once a block, not once a tile, even at 2^16
+//         paths. A slot costs one shared-memory bit lookup.
+//     The TPU's joint/sequential grid has no counterpart: tier and heavy
+//     tiles are all in flight together on the 132 SMs.
 
 #include "common.cuh"
 
@@ -124,59 +132,6 @@ __device__ __forceinline__ void tier_column(
   const long long n = tile_row * TALL_W + c;
   t.depth[n] = d;
   t.uniq[n] = u;
-}
-
-// Heavy / dense block: 128 columns starting at blk*128. `uniq` may be
-// null (depth only).
-__device__ __forceinline__ void heavy_columns(
-    const uint8_t* __restrict__ a, int rows, int n_pad, int nibble,
-    const int* words, int n_words, long long blk, int* depth, int* uniq,
-    int (*s_d)[H_COLS], int (*s_u)[H_COLS]) {
-  const int lane = threadIdx.x & 31;
-  const int grp = threadIdx.x >> 5;
-  const long long col0 = blk * H_COLS;
-  const long long col = col0 + lane * 4;
-  const bool want_u = uniq != nullptr;
-  int d[4] = {0, 0, 0, 0};
-  int u[4] = {0, 0, 0, 0};
-  for (int r = grp; r < rows; r += H_GROUPS) {
-    const int m0 = mask_bit(words, n_words, nibble ? 2u * r : (unsigned)r);
-    const int m1 = nibble ? mask_bit(words, n_words, 2u * r + 1u) : 0;
-    if (!(m0 | m1)) continue;  // warp-uniform: every lane has this r
-    const unsigned q = __ldg(reinterpret_cast<const unsigned*>(
-        a + (long long)r * n_pad + col));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const unsigned b = (q >> (8 * j)) & 0xFFu;
-      if (nibble) {
-        const int lo = (int)(b & 15u);
-        const int hi = (int)(b >> 4);
-        d[j] += m0 * lo + m1 * hi;
-        if (want_u) u[j] += (m0 & (int)(lo != 0)) + (m1 & (int)(hi != 0));
-      } else {
-        const int v = (int)(int8_t)b;
-        d[j] += m0 * v;
-        if (want_u) u[j] += m0 & (int)(v != 0);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    s_d[grp][lane * 4 + j] = d[j];
-    s_u[grp][lane * 4 + j] = u[j];
-  }
-  __syncthreads();
-  if (threadIdx.x < H_COLS) {
-    int sd = 0;
-    int su = 0;
-#pragma unroll
-    for (int gi = 0; gi < H_GROUPS; ++gi) {
-      sd += s_d[gi][threadIdx.x];
-      su += s_u[gi][threadIdx.x];
-    }
-    depth[col0 + threadIdx.x] = sd;
-    if (want_u) uniq[col0 + threadIdx.x] = su;
-  }
 }
 
 __global__ void __launch_bounds__(THREADS) ell_tier_kernel(
@@ -336,12 +291,15 @@ __device__ __forceinline__ void store16(int* p, const int (&v)[X_COLS]) {
   }
 }
 
+// One column tile of K2: the list rows of each row group summed into its
+// columns (list chunks restaged here when the rows pass X_ROW_CHUNK),
+// the groups added in shared memory, the sums stored. `n_sel` is the
+// staged list's length. Every thread of the block calls it.
 template <bool NIBBLE, bool WANT_U, bool VEC>
-__global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
-    cross_kernel(CrossArgs x) {
-  __shared__ int s_list[X_ROW_CHUNK];
-  __shared__ int s_count;
-  __shared__ __align__(16) int s_red[2][X_BLOCK_COLS];  // groups > 1
+__device__ __forceinline__ void cross_tile(const CrossArgs& x, int tile,
+                                           int& n_sel, int* s_list,
+                                           int* s_count,
+                                           int (*s_red)[X_BLOCK_COLS]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wpg = H_GROUPS / x.groups;  // warps a row group
@@ -349,49 +307,59 @@ __global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
   const int cols = X_WARP_COLS * wpg;  // a tile's columns
   const int local = (warp % wpg) * X_WARP_COLS + lane * X_COLS;
   const int chunks = (x.rows + X_ROW_CHUNK - 1) / X_ROW_CHUNK;
+  const long long col = (long long)tile * cols + local;
+  const bool live = col < x.n_pad;  // all 16 columns or none
+  int d[X_COLS], u[X_COLS];
+#pragma unroll
+  for (int j = 0; j < X_COLS; ++j) d[j] = u[j] = 0;
+  for (int c = 0; c < chunks; ++c) {  // block-uniform
+    if (chunks > 1) {
+      n_sel = stage_rows<NIBBLE>(x, c * X_ROW_CHUNK,
+                                 min(X_ROW_CHUNK, x.rows - c * X_ROW_CHUNK),
+                                 s_list, s_count);
+    }
+    const int lo = (int)((long long)n_sel * g / x.groups);
+    const int hi = (int)((long long)n_sel * (g + 1) / x.groups);
+    if (live) cross_rows<NIBBLE, WANT_U, VEC>(x, col, s_list, lo, hi, d, u);
+  }
+  if (x.groups == 1) {
+    if (live) {
+      store16(x.depth + col, d);
+      if (WANT_U) store16(x.uniq + col, u);
+    }
+    return;
+  }
+  if (live) {
+    store16(&s_red[0][g * cols + local], d);
+    if (WANT_U) store16(&s_red[1][g * cols + local], u);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cols; c += THREADS) {
+    const long long oc = (long long)tile * cols + c;
+    if (oc >= x.n_pad) break;
+    int sd = 0, su = 0;
+    for (int gi = 0; gi < x.groups; ++gi) {
+      sd += s_red[0][gi * cols + c];
+      if (WANT_U) su += s_red[1][gi * cols + c];
+    }
+    x.depth[oc] = sd;
+    if (WANT_U) x.uniq[oc] = su;
+  }
+  __syncthreads();  // s_red is rewritten by the next tile
+}
+
+template <bool NIBBLE, bool WANT_U, bool VEC>
+__global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
+    cross_kernel(CrossArgs x) {
+  __shared__ int s_list[X_ROW_CHUNK];
+  __shared__ int s_count;
+  __shared__ __align__(16) int s_red[2][X_BLOCK_COLS];  // groups > 1
+  const int chunks = (x.rows + X_ROW_CHUNK - 1) / X_ROW_CHUNK;
   int n_sel = chunks == 1
                   ? stage_rows<NIBBLE>(x, 0, x.rows, s_list, &s_count)
                   : 0;
   for (int tile = blockIdx.x; tile < x.tiles; tile += gridDim.x) {
-    const long long col = (long long)tile * cols + local;
-    const bool live = col < x.n_pad;  // all 16 columns or none
-    int d[X_COLS], u[X_COLS];
-#pragma unroll
-    for (int j = 0; j < X_COLS; ++j) d[j] = u[j] = 0;
-    for (int c = 0; c < chunks; ++c) {  // block-uniform
-      if (chunks > 1) {
-        n_sel = stage_rows<NIBBLE>(x, c * X_ROW_CHUNK,
-                                   min(X_ROW_CHUNK, x.rows - c * X_ROW_CHUNK),
-                                   s_list, &s_count);
-      }
-      const int lo = (int)((long long)n_sel * g / x.groups);
-      const int hi = (int)((long long)n_sel * (g + 1) / x.groups);
-      if (live) cross_rows<NIBBLE, WANT_U, VEC>(x, col, s_list, lo, hi, d, u);
-    }
-    if (x.groups == 1) {
-      if (live) {
-        store16(x.depth + col, d);
-        if (WANT_U) store16(x.uniq + col, u);
-      }
-      continue;
-    }
-    if (live) {
-      store16(&s_red[0][g * cols + local], d);
-      if (WANT_U) store16(&s_red[1][g * cols + local], u);
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < cols; c += THREADS) {
-      const long long oc = (long long)tile * cols + c;
-      if (oc >= x.n_pad) break;
-      int sd = 0, su = 0;
-      for (int gi = 0; gi < x.groups; ++gi) {
-        sd += s_red[0][gi * cols + c];
-        if (WANT_U) su += s_red[1][gi * cols + c];
-      }
-      x.depth[oc] = sd;
-      if (WANT_U) x.uniq[oc] = su;
-    }
-    __syncthreads();  // s_red is rewritten by the next tile
+    cross_tile<NIBBLE, WANT_U, VEC>(x, tile, n_sel, s_list, &s_count, s_red);
   }
 }
 
@@ -454,34 +422,187 @@ __global__ void __launch_bounds__(THREADS) ell_flat_kernel(
   uniq[c] = u;
 }
 
-__global__ void __launch_bounds__(THREADS) ell_splitn_kernel(
-    Tier t0, Tier t1, Tier t2, int nt, const uint8_t* heavy, int h_rows,
-    int nh_pad, int* dh, int* uh, int sub, int pack16, const int* words,
-    int n_words) {
-  __shared__ int s_words[MAX_SMEM_WORDS];
-  __shared__ int s_d[H_GROUPS][H_COLS];
-  __shared__ int s_u[H_GROUPS][H_COLS];
-  const int* w = stage_words(s_words, words, n_words, MAX_SMEM_WORDS);
-  long long b = blockIdx.x;  // block-uniform: no divergent phase picks
-  const Tier* tiers[3] = {&t0, &t1, &t2};
-  for (int i = 0; i < nt; ++i) {
-    const long long nb = (long long)tiers[i]->g * sub * COL_BLOCKS;
-    if (b < nb) {
-      tier_column(*tiers[i], sub, pack16, w, n_words, b);
-      return;
+// K1: see the design notes above.
+constexpr int T_COLS = 4;  // tier columns a thread owns
+constexpr int T_BLOCK_COLS = THREADS * T_COLS;
+constexpr int T_ROW_TILES = TALL_W / T_BLOCK_COLS;  // tier tiles a tall row
+
+struct SplitArgs {
+  Tier t[3];
+  int nt;
+  int sub;
+  int pack16;
+  CrossArgs h;      // the heavy block and the raw mask; h.tiles 0 without one
+  long long tiles;  // h.tiles heavy tiles, then the tiers' tiles
+};
+
+// A tier tile: 4 columns a thread of tall row `tile_row` (g*sub + r),
+// slot words W at a time (the tier's k, or chunks of 8). `stage()`
+// returns the mask's bit words, packing them on the block's first call:
+// it runs after the first words' loads are issued.
+template <int W, bool P16, class Stage>
+__device__ __forceinline__ void tier_tile(const Tier& t, int sub,
+                                          long long tile_row, int c,
+                                          const Stage& stage, int n_words) {
+  const long long g = tile_row / sub;
+  const int r = (int)(tile_row % sub);
+  const long long stride = (long long)sub * TALL_W;  // next slot word
+  int d[T_COLS] = {}, u[T_COLS] = {};
+  const int* words = nullptr;
+  for (int kb = 0; kb < t.k; kb += W) {  // block-uniform
+    const int kc = min(W, t.k - kb);
+    const int* at = t.slots + ((g * t.k + kb) * sub + r) * TALL_W + c;
+    uint4 v[W];
+#pragma unroll
+    for (int kk = 0; kk < W; ++kk) {
+      v[kk] = kk < kc ? __ldg(reinterpret_cast<const uint4*>(at + kk * stride))
+                      : make_uint4(0u, 0u, 0u, 0u);
     }
-    b -= nb;
+    if (kb == 0) words = stage();
+#pragma unroll
+    for (int kk = 0; kk < W; ++kk) {
+      const unsigned word[T_COLS] = {v[kk].x, v[kk].y, v[kk].z, v[kk].w};
+#pragma unroll
+      for (int cc = 0; cc < T_COLS; ++cc) {
+        if (P16) {
+          // Two path<<8|count halves; the low half is the even slot.
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const unsigned h = (word[cc] >> (16 * half)) & 0xFFFFu;
+            const int bit = mask_bit(words, n_words, h >> 8);
+            d[cc] += bit * (int)(h & 0xFFu);
+            u[cc] += bit & (int)(h != 0u);
+          }
+        } else {
+          // path<<16|count; unsigned shifts, so paths >= 2^15 stay positive.
+          const int bit = mask_bit(words, n_words, word[cc] >> 16);
+          d[cc] += bit * (int)(word[cc] & 0xFFFFu);
+          u[cc] += bit & (int)(word[cc] != 0u);
+        }
+      }
+    }
   }
-  heavy_columns(heavy, h_rows, nh_pad, 1, w, n_words, b, dh, uh, s_d,
-                s_u);
+  const long long n = tile_row * TALL_W + c;
+  *reinterpret_cast<int4*>(t.depth + n) = make_int4(d[0], d[1], d[2], d[3]);
+  *reinterpret_cast<int4*>(t.uniq + n) = make_int4(u[0], u[1], u[2], u[3]);
+}
+
+template <bool P16, class Stage>
+__device__ __forceinline__ void tier_tile_k(const Tier& t, int sub,
+                                            long long b, const Stage& stage,
+                                            int n_words) {
+  const long long tile_row = b / T_ROW_TILES;
+  const int c = (int)(b % T_ROW_TILES) * T_BLOCK_COLS + threadIdx.x * T_COLS;
+  if (t.k <= 1) {
+    tier_tile<1, P16>(t, sub, tile_row, c, stage, n_words);
+  } else if (t.k <= 2) {
+    tier_tile<2, P16>(t, sub, tile_row, c, stage, n_words);
+  } else if (t.k <= 4) {
+    tier_tile<4, P16>(t, sub, tile_row, c, stage, n_words);
+  } else {
+    tier_tile<8, P16>(t, sub, tile_row, c, stage, n_words);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
+    ell_splitn_kernel(SplitArgs x) {
+  __shared__ int s_list[X_ROW_CHUNK];
+  __shared__ int s_count;
+  // The heavy tiles' group sums; once a block reaches its tier tiles
+  // (they come after every heavy tile), the mask's bit words.
+  __shared__ __align__(16) int s_red[2][X_BLOCK_COLS];
+  static_assert(MAX_SMEM_WORDS <= 2 * X_BLOCK_COLS, "bit words fit s_red");
+  const CrossArgs& h = x.h;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // Slots hold 16-bit path ids: words past 2^16 paths are never read.
+  const int n_words = min((h.n_paths + 31) / 32, MAX_SMEM_WORDS);
+  int n_sel = -1;  // the row list is not staged yet
+  const int* words = nullptr;
+  const auto stage = [&]() -> const int* {
+    if (words == nullptr) {  // block-uniform
+      int* w = &s_red[0][0];
+      constexpr int WARPS = THREADS / 32;
+      constexpr int BATCH = 8;  // words a warp loads before its ballots
+      for (int w0 = warp; w0 < n_words; w0 += WARPS * BATCH) {
+        int bit[BATCH];
+#pragma unroll
+        for (int i = 0; i < BATCH; ++i) {
+          const long long p = 32LL * (w0 + i * WARPS) + lane;
+          bit[i] = raw_mask_bit(h.mask, h.elem_bytes, h.n_paths, p);
+        }
+#pragma unroll
+        for (int i = 0; i < BATCH; ++i) {
+          const unsigned b = __ballot_sync(0xFFFFFFFFu, bit[i]);
+          const int wi = w0 + i * WARPS;
+          if (lane == 0 && wi < n_words) w[wi] = (int)b;
+        }
+      }
+      __syncthreads();
+      words = w;
+    }
+    return words;
+  };
+  for (long long tile = blockIdx.x; tile < x.tiles; tile += gridDim.x) {
+    if (tile < h.tiles) {
+      if (n_sel < 0) {
+        n_sel = h.rows <= X_ROW_CHUNK
+                    ? stage_rows<true>(h, 0, h.rows, s_list, &s_count)
+                    : 0;
+      }
+      cross_tile<true, true, VEC>(h, (int)tile, n_sel, s_list, &s_count,
+                                  s_red);
+      continue;
+    }
+    long long b = tile - h.tiles;
+    for (int i = 0; i < x.nt; ++i) {
+      const long long nb = (long long)x.t[i].g * x.sub * T_ROW_TILES;
+      if (b < nb) {
+        if (x.pack16) {
+          tier_tile_k<true>(x.t[i], x.sub, b, stage, n_words);
+        } else {
+          tier_tile_k<false>(x.t[i], x.sub, b, stage, n_words);
+        }
+        break;
+      }
+      b -= nb;
+    }
+  }
+}
+
+// Row groups of K2's tiles over n_pad columns: the fewest that still
+// give every SM two tiles.
+int cross_groups(long long n_pad) {
+  int groups = 1;
+  while (groups < H_GROUPS &&
+         (n_pad + X_BLOCK_COLS / groups - 1) / (X_BLOCK_COLS / groups) <
+             2LL * sm_count()) {
+    groups *= 2;
+  }
+  return groups;
+}
+
+// One launch of K1 on a persistent grid, as launch_cross.
+template <bool VEC>
+void launch_splitn(const SplitArgs& x, cudaStream_t st) {
+  static int resident = 0;
+  if (resident == 0) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ell_splitn_kernel<VEC>, THREADS, 0);
+    resident = sm_count() * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long blocks = x.tiles < resident ? x.tiles : resident;
+  ell_splitn_kernel<VEC><<<(unsigned)blocks, THREADS, 0, st>>>(x);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Every entry point takes the raw mask (`elem_bytes` 1 or 4 per path)
-// and a scratch buffer of n_words int32 for its bit words.
+// Every entry point takes the raw mask (`elem_bytes` 1 or 4 per path);
+// K3 and K9 also a scratch buffer of n_words int32 for its bit words.
 
 int pollen_ell_tier(const void* slots, int k, int g, int sub, int pack16,
                     const void* mask, int elem_bytes, int n_paths,
@@ -513,13 +634,7 @@ int pollen_cross_depth(const void* a, int rows, long long n_pad, int nibble,
     return (int)cudaErrorInvalidValue;
   }
   if (n_pad <= 0) return (int)cudaGetLastError();
-  // Row groups: the fewest that still give every SM two tiles.
-  int groups = 1;
-  while (groups < H_GROUPS &&
-         (n_pad + X_BLOCK_COLS / groups - 1) / (X_BLOCK_COLS / groups) <
-             2LL * sm_count()) {
-    groups *= 2;
-  }
+  const int groups = cross_groups(n_pad);
   const int cols = X_BLOCK_COLS / groups;
   CrossArgs x{static_cast<const uint8_t*>(a), rows, n_pad, mask, elem_bytes,
               n_paths, static_cast<int*>(depth), static_cast<int*>(uniq),
@@ -533,33 +648,51 @@ int pollen_cross_depth(const void* a, int rows, long long n_pad, int nibble,
   return (int)cudaGetLastError();
 }
 
+// K1 takes the raw mask itself (no bit words). Tier slots and outputs
+// are 16-byte aligned; the heavy block (nibbles, null when absent) is
+// 4-byte aligned with a multiple of 128 columns.
 int pollen_ell_splitn(int nt,
                       const void* s0, int k0, int g0, void* d0, void* u0,
                       const void* s1, int k1, int g1, void* d1, void* u1,
                       const void* s2, int k2, int g2, void* d2, void* u2,
                       const void* heavy, int h_rows, int nh_pad, void* dh,
                       void* uh, int sub, int pack16, const void* mask,
-                      int elem_bytes, int n_paths, void* words, int n_words,
-                      void* stream) {
+                      int elem_bytes, int n_paths, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
-  Tier t[3] = {
-      {static_cast<const int*>(s0), k0, g0, static_cast<int*>(d0),
-       static_cast<int*>(u0)},
-      {static_cast<const int*>(s1), k1, g1, static_cast<int*>(d1),
-       static_cast<int*>(u1)},
-      {static_cast<const int*>(s2), k2, g2, static_cast<int*>(d2),
-       static_cast<int*>(u2)},
-  };
-  long long blocks = 0;
-  for (int i = 0; i < nt; ++i) blocks += (long long)t[i].g * sub * COL_BLOCKS;
-  if (heavy != nullptr) blocks += nh_pad / H_COLS;
-  if (blocks > 0) {
-    ell_splitn_kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
-        t[0], t[1], t[2], nt, static_cast<const uint8_t*>(heavy), h_rows,
-        nh_pad, static_cast<int*>(dh), static_cast<int*>(uh), sub, pack16, w,
-        n_words);
+  SplitArgs x{
+      {{static_cast<const int*>(s0), k0, g0, static_cast<int*>(d0),
+        static_cast<int*>(u0)},
+       {static_cast<const int*>(s1), k1, g1, static_cast<int*>(d1),
+        static_cast<int*>(u1)},
+       {static_cast<const int*>(s2), k2, g2, static_cast<int*>(d2),
+        static_cast<int*>(u2)}},
+      nt, sub, pack16,
+      {static_cast<const uint8_t*>(heavy), h_rows, nh_pad, mask, elem_bytes,
+       n_paths, static_cast<int*>(dh), static_cast<int*>(uh), 1, 0},
+      0};
+  uintptr_t align = 0;
+  for (int i = 0; i < nt; ++i) {
+    align |= reinterpret_cast<uintptr_t>(x.t[i].slots) |
+             reinterpret_cast<uintptr_t>(x.t[i].depth) |
+             reinterpret_cast<uintptr_t>(x.t[i].uniq);
+    x.tiles += (long long)x.t[i].g * sub * T_ROW_TILES;
+  }
+  if (heavy != nullptr) {
+    if (nh_pad % H_COLS || reinterpret_cast<uintptr_t>(heavy) % 4) {
+      return (int)cudaErrorInvalidValue;
+    }
+    align |= reinterpret_cast<uintptr_t>(dh) | reinterpret_cast<uintptr_t>(uh);
+    x.h.groups = cross_groups(nh_pad);
+    const int cols = X_BLOCK_COLS / x.h.groups;
+    x.h.tiles = (nh_pad + cols - 1) / cols;
+    x.tiles += x.h.tiles;
+  }
+  if (align % 16) return (int)cudaErrorInvalidValue;
+  if (x.tiles == 0) return (int)cudaGetLastError();
+  if (heavy == nullptr || reinterpret_cast<uintptr_t>(heavy) % 16 == 0) {
+    launch_splitn<true>(x, st);
+  } else {
+    launch_splitn<false>(x, st);
   }
   return (int)cudaGetLastError();
 }

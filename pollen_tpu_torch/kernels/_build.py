@@ -67,7 +67,7 @@ SIGNATURES = {
         _P, _I, _I, _P, _P,  # tier 2
         _P, _I, _I, _P, _P,  # heavy: bytes, rows, nh_pad, depth, uniq
         _I, _I,  # sub, pack16
-        *_MASK,
+        _P, _I, _I,  # raw mask, elem_bytes, n_paths (no bit words)
         _P,  # stream
     ),
     # depth_batch.cu: masks are (q, n_paths), words q*n_words
@@ -83,7 +83,8 @@ SIGNATURES = {
         _P, _I, _I, _P, _P,  # tier 2
         _P, _I, _I, _P, _P,  # heavy: bytes, rows, nh_pad, depth, uniq
         _I, _I,  # sub, pack16
-        _P, _I, _I, _I, _P, _I,  # masks, elem_bytes, n_paths, q, words, n_words
+        _P, _I, _I, _I,  # raw masks, elem_bytes, n_paths, q
+        _P, _L,  # scratch, its int32 words (ellscan.batch_scratch_words)
         _P,  # stream
     ),
     # scan.cu

@@ -357,11 +357,15 @@ def masked_ell_splitn_depth_batch_plain(
 
 
 def _check_splitn(tiers, heavy, ks):
-    """Refuse a split index the fused kernels do not read; returns the
-    tiers' row groups, whether the heavy class is present, the device."""
+    """Refuse a split index the fused kernels do not read (they load
+    four columns of a tier as one 16-byte word, so a tier must start on
+    a 16-byte boundary); returns the tiers' row groups, whether the heavy
+    class is present, the device."""
     if not 1 <= len(tiers) <= 3 or len(tiers) != len(ks):
         raise ValueError(f"need 1-3 tiers with one k each, got {len(ks)}")
     gs = [_check_tall(t, k) for t, k in zip(tiers, ks)]
+    if any(t.data_ptr() % 16 for t in tiers):
+        raise ValueError("tier slots must start on a 16-byte boundary")
     has_heavy = heavy.numel() > 0
     if has_heavy:
         from .crossmat import check_cross
@@ -412,6 +416,24 @@ def kernel_mask(mask: torch.Tensor, device) -> tuple:
         raise ValueError(f"mask must be 1-D, got shape {tuple(mask.shape)}")
     masks, elem, n_paths, n_words = kernel_masks(mask[None], device)
     return masks[0], elem, n_paths, n_words
+
+
+# Mask words a block of the batched split kernel builds itself (4096
+# paths: csrc/depth_batch.cu BLOCK_BITS_WORDS); past them the masks are
+# packed into scratch by one launch ahead.
+BATCH_BLOCK_WORDS = 128
+BATCH_QCHUNK = 32  # queries a block of the batched kernels serves
+
+
+def batch_scratch_words(q: int, n_paths: int) -> int:
+    """Int32 scratch of :func:`masked_ell_splitn_depth_batch` for ``q``
+    masks of ``n_paths``: none while a block builds its own mask bits,
+    else each 32-query chunk's path-major bits (one word a path, bit j
+    for query j) and each query's bit words (32 paths a word)."""
+    n_words = max(-(-n_paths // 32), 1)
+    if n_words <= BATCH_BLOCK_WORDS:
+        return 0
+    return -(-q // BATCH_QCHUNK) * n_words * 32 + q * n_words
 
 
 def alloc_outputs(sizes, n_words: int, device):
@@ -496,7 +518,8 @@ def masked_ell_splitn_depth(
     pack16: bool = False,
 ):
     """The fused split query: up to three tall tiers plus the nibble
-    heavy block (``heavy.numel() == 0`` when absent) in one launch.
+    heavy block (``heavy.numel() == 0`` when absent) in one launch, which
+    reads the raw mask itself.
     Returns ``(d_i, u_i)`` per tier, then ``(dh, uh)`` when the heavy
     class is present, each int32 in natural column order.
     CUDA: csrc/depth.cu pollen_ell_splitn."""
@@ -505,11 +528,11 @@ def masked_ell_splitn_depth(
         return masked_ell_splitn_depth_plain(tiers, heavy, mask, ks, pack16)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    mask, elem, n_paths, n_words = kernel_mask(mask, device)
+    mask, elem, n_paths, _ = kernel_mask(mask, device)
     sizes = [n for g in gs for n in (g * SUB * TALL_W,) * 2]
     if has_heavy:
         sizes += [heavy.shape[1]] * 2
-    *outs, words = alloc_outputs(sizes, n_words, device)
+    *outs, _ = alloc_outputs(sizes, 0, device)
     args = []
     for i, (t, k, g) in enumerate(zip(tiers, ks, gs)):
         d, u = outs[2 * i], outs[2 * i + 1]
@@ -526,7 +549,7 @@ def masked_ell_splitn_depth(
         "pollen_ell_splitn",
         lib.pollen_ell_splitn(
             len(tiers), *args, SUB, int(pack16), mask.data_ptr(), elem,
-            n_paths, words.data_ptr(), n_words, _stream(device),
+            n_paths, _stream(device),
         ),
     )
     launches["ell_splitn"] += 1
@@ -543,9 +566,10 @@ def masked_ell_splitn_depth_batch(
     """The batched split query: (Q, P) masks over up to three tall tiers
     plus the nibble heavy block in one launch, whatever the tier count
     (the reference splits three-tier batches into one call per tier
-    only for Mosaic's VMEM ceiling). Returns ``(d_i, u_i)`` per tier,
-    then ``(dh, uh)`` (None, None when the heavy class is absent), each
-    int32 (Q, columns) in natural column order.
+    only for Mosaic's VMEM ceiling); past 4096 paths one packing launch
+    runs ahead (:func:`batch_scratch_words`). Returns ``(d_i, u_i)`` per
+    tier, then ``(dh, uh)`` (None, None when the heavy class is absent),
+    each int32 (Q, columns) in natural column order.
     CUDA: csrc/depth_batch.cu pollen_ell_splitn_batch."""
     gs, has_heavy, device = _check_splitn(tiers, heavy, ks)
     if masks.dim() != 2 or masks.shape[0] == 0:
@@ -556,12 +580,13 @@ def masked_ell_splitn_depth_batch(
         )
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    masks, elem, n_paths, n_words = kernel_masks(masks, device)
+    masks, elem, n_paths, _ = kernel_masks(masks, device)
     q = masks.shape[0]
     cols = [c for g in gs for c in (g * SUB * TALL_W,) * 2]
     if has_heavy:
         cols += [heavy.shape[1]] * 2
-    *outs, words = alloc_outputs([q * c for c in cols], q * n_words, device)
+    n_scratch = batch_scratch_words(q, n_paths)
+    *outs, scratch = alloc_outputs([q * c for c in cols], n_scratch, device)
     args = []
     for i, (t, k, g) in enumerate(zip(tiers, ks, gs)):
         d, u = outs[2 * i], outs[2 * i + 1]
@@ -578,7 +603,7 @@ def masked_ell_splitn_depth_batch(
         "pollen_ell_splitn_batch",
         lib.pollen_ell_splitn_batch(
             len(tiers), *args, SUB, int(pack16), masks.data_ptr(), elem,
-            n_paths, q, words.data_ptr(), n_words, _stream(device),
+            n_paths, q, scratch.data_ptr(), n_scratch, _stream(device),
         ),
     )
     launches["ell_splitn_batch"] += 1

@@ -334,3 +334,51 @@ def test_wrappers_check_inputs():
         )
     with pytest.raises(ValueError, match="SUB"):
         port.check_ell_sub(port.SUB + 1)
+
+
+@pytest.mark.parametrize(
+    "q,n_paths,words",
+    [
+        (32, 0, 0),
+        (65, 4096, 0),  # the bits of 4096 paths are built in each block
+        (1, 4097, 129 * 32 + 129),  # one chunk's path-major bits + 1 query
+        (33, 40000, 2 * 1250 * 32 + 33 * 1250),  # two chunks, 33 queries
+    ],
+)
+def test_batch_scratch_words(q, n_paths, words):
+    """The batched split kernel's scratch: none up to 4096 paths, else
+    each 32-query chunk's path-major bits and each query's bit words."""
+    assert port.batch_scratch_words(q, n_paths) == words
+
+
+def test_splitn_refuses_misaligned_tiers():
+    """The fused kernels load four tier columns as one 16-byte word."""
+    n = port.SUB * port.TALL_W
+    tall = torch.zeros(n + 1, dtype=torch.int32)[1:].view(port.SUB, port.TALL_W)
+    assert tall.is_contiguous() and tall.data_ptr() % 16
+    empty = torch.zeros((0, 0), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="16-byte"):
+        port.masked_ell_splitn_depth([tall], empty, torch.ones(8), ks=[1])
+    with pytest.raises(ValueError, match="16-byte"):
+        port.masked_ell_splitn_depth_batch(
+            [tall], empty, torch.ones((2, 8)), ks=[1]
+        )
+
+
+def test_splitn_heavy_block_alone():
+    """Tiers of no columns (how the kernel_ab probe times the heavy phase
+    alone): empty tier outputs, heavy outputs as in the whole call."""
+    rng = np.random.default_rng(15)
+    p = 120
+    tall, k = _tall_tier(rng, 2, 3000, p, pack16=True)
+    tall = torch.from_numpy(tall)
+    heavy = torch.from_numpy(rng.integers(0, 256, (64, 256)).astype(np.uint8))
+    masks = torch.from_numpy(rng.random((3, p)) < 0.5)
+    whole = port.masked_ell_splitn_depth_batch([tall], heavy, masks, [k], True)
+    alone = port.masked_ell_splitn_depth_batch([tall[:0]], heavy, masks, [k],
+                                               True)
+    assert alone[0].shape == alone[1].shape == (3, 0)
+    assert torch.equal(alone[2], whole[2]) and torch.equal(alone[3], whole[3])
+    single = port.masked_ell_splitn_depth([tall[:0]], heavy, masks[0], [k], True)
+    assert single[0].numel() == 0
+    assert torch.equal(single[2], whole[2][0])
