@@ -11,8 +11,11 @@ and then:
 1. holds every kernel against its plain PyTorch version on the card,
    on all fixture graphs, exact: fused split ELL K1, crossing matrix K2
    in both layouts and depth-only, tall tier K3 with pack16 and 32-bit
-   slots (4 seeded masks each); the batched split ELL K4 on 1-3 tiers,
-   with and without a heavy block, and the batched crossing matrix K5
+   slots (4 seeded masks each; and at 1 to 17 stored words a column on
+   3 row groups, path ids up to 65535, under 65,536-path, 300-path and
+   all-ones masks, one launch a call and no packing launch); the
+   batched split ELL K4 on 1-3 tiers, with and without a heavy block,
+   and the batched crossing matrix K5
    in both layouts, at Q = 1, 5, 32 and 40 seeded masks; K5 also with
    every cell at its clip under all-ones masks, at P = 2 to 300 paths,
    Q = 1, 5, 16, 17, 32, 40, and on a matrix 4 bytes off a 16-byte
@@ -55,13 +58,17 @@ wide_p2e17 (2^17 paths, route "scan") and bench_runs (route "runs"),
 
 The flat single-tier ELL (K9) and the crossing-matrix probe ladder
 (K10 raw and vd, K11, K12) are checked against their plain versions on
-the fixtures, on path ids up to 65535 and on a seeded matrix where only
-some tiles hold counts >= 2 (phase 1). Two more paths follow: the flat
+the fixtures, on path ids up to 65535 and on seeded matrices where only
+some tiles hold counts >= 2 (64 x 8192; 64 x 8320, a narrower last v2
+tile; 2,500 byte rows, past the row-list chunk), each probe call one
+launch (phase 1). Two more paths follow: the flat
 ELL path (``build_ell`` on the real runs of bench and chr8_third, then
 ``masked_ell_depth`` under 8 masks, against plain, numpy and the routed
 query) and the probe path (the two probe scripts' ``run`` on bench's
 16 MiB crossing matrix and chr8_third's 256 MiB one). K9 is timed
-against K3 on the same slots (flat against tall).
+against K3 on the same slots (flat against tall), and the probe ladder
+at both matrices and at the unfused heavy block, each rung's bound
+counting only the byte rows its mask selects.
 
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
@@ -146,6 +153,14 @@ KERNELS = {
         SRC_PROBES, "probes/crossmat_variants.py:64", "cross_probe_v2"
     ),
 }
+# The ladder timed a second time at the unfused heavy block, where K2
+# loses to the float32 matmul (the same kernels and launch counts).
+UNFUSED_PROBES = ", unfused heavy block"
+KERNELS.update({
+    f"{name}{UNFUSED_PROBES}": KERNELS[name]
+    for name in ("cross_probe_raw (K10)", "cross_probe_vd (K10)",
+                 "cross_probe_v1 (K11)", "cross_probe_v2 (K12)")
+})
 # The kernels of each main path: the single query, the batch, the scan
 # family (single queries and batches past the ELL and matrix budgets).
 SINGLE_PATH = ("ell_splitn (K1)", "cross (K2)", "ell_tier (K3)",
@@ -157,8 +172,7 @@ SCAN_PATH = ("seg_scan (K6)", "boundary (K7)", "run_scan (K8)",
 # The flat-ELL path (build_ell, then masked_ell_depth) and the probe
 # ladder (the two probe scripts' run()).
 FLAT_PATH = ("ell_flat (K9)",)
-PROBE_PATH = ("cross_probe_raw (K10)", "cross_probe_vd (K10)",
-              "cross_probe_v1 (K11)", "cross_probe_v2 (K12)")
+PROBE_PATH = tuple(name for name in KERNELS if "cross_probe" in name)
 # Batch sizes of phase 1 (40: over the kernels' 32-query chunk) and of
 # the batch timing.
 KERNEL_QS = (1, 5, 32, 40)
@@ -736,6 +750,92 @@ def phase_kernels_cross_batch(errs: Errors):
           "nibble P = 2, 30, 66, 300; a matrix 4 bytes off a 16-byte "
           f"boundary; Q = {', '.join(map(str, CROSS_QS))}; all equal plain "
           "(tolerance 0)", flush=True)
+
+
+# K3's edges: stored words a column across tier_tile's chunks of 1, 2,
+# 4 and 8 words; path ids whose bits sit in the first, middle and last
+# mask words, two with the slot word's sign bit set.
+TIER_KS = (1, 2, 3, 4, 5, 8, 9, 17)
+TIER_IDS = (5, 32768, 40000, 65535)
+
+
+def one_launch(errs: Errors, name, call, plain, key, counters, what):
+    """Hold ``call`` against ``plain`` and check that it added exactly one
+    to its wrapper's launch count ``key``."""
+    before = counters[key]
+    got = call()
+    need(counters[key] == before + 1,
+         f"{name} {what}: {counters[key] - before} launches, want 1")
+    errs.compare(name, got, plain(), what)
+
+
+def phase_kernels_tier(errs: Errors):
+    """Phase 1 (K3's edges), each call against its plain version,
+    tolerance 0: random tall tiers of 3 row groups (odd) at k =
+    TIER_KS stored words, read as 32-bit and as pack16 slots (every
+    32-bit word is a valid slot in both), with the path ids TIER_IDS
+    planted; seeded masks of 65,536 paths (bytes and int32), a mask of
+    300 paths and the all-ones mask; one launch a call (the wrapper's
+    counter) and, by the profiler, one ell_tier_kernel and nothing else
+    (no packing launch); a misaligned tier refused."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import ellscan as ell
+
+    name = "ell_tier (K3)"
+    rng = np.random.default_rng(17)
+    gen = torch.Generator().manual_seed(17)
+    masks = {
+        "seeded 65536 int32": torch.from_numpy(
+            rng.integers(0, 2, 65536).astype(np.int32)).cuda(),
+        "seeded 65536 bytes": torch.from_numpy(rng.random(65536) < 0.5).cuda(),
+        "seeded 300": torch.from_numpy(rng.random(300) < 0.5).cuda(),
+        "all ones": torch.ones(65536, dtype=torch.int32, device="cuda"),
+    }
+    ids = torch.tensor(TIER_IDS, dtype=torch.int64)
+    g = 3
+    for k in TIER_KS:
+        tall = torch.randint(-2**31, 2**31, (g * k * ell.SUB, ell.TALL_W),
+                             dtype=torch.int64, generator=gen)
+        tall[torch.rand(tall.shape, generator=gen) < 0.3] = 0
+        tall[0, :4] = ids << 16 | torch.tensor([3, 7, 2, 1])
+        tall[-1, -4:] = ids << 16 | torch.tensor([1, 2, 3, 4])
+        tall = (tall - ((tall >= 2**31).long() << 32)).to(torch.int32).cuda()
+        for p16 in (False, True):
+            for label, m in masks.items():
+                one_launch(
+                    errs, name,
+                    functools.partial(ell.masked_ell_depth_tall, tall, m, k, p16),
+                    functools.partial(ell.masked_ell_depth_tall_plain, tall, m,
+                                      k, p16),
+                    "ell_tier", ell.launches,
+                    f"k={k}, g={g}, pack16={p16}, {label} mask",
+                )
+        if k in (2, 17):
+            for p16 in (False, True):
+                prof = device_profile(functools.partial(
+                    ell.masked_ell_depth_tall, tall, masks["all ones"], k, p16),
+                    reps=3)
+                print(f"{name} call, k={k}, pack16={p16}: "
+                      f"{describe_profile(prof)}", flush=True)
+                need(not prof or set(prof) == {"ell_tier_kernel"},
+                     f"{name} is not one ell_tier_kernel launch: {sorted(prof)}")
+    flat = torch.zeros(ell.SUB * ell.TALL_W + 1, dtype=torch.int32, device="cuda")
+    try:
+        ell.masked_ell_depth_tall(flat[1:].view(ell.SUB, ell.TALL_W),
+                                  masks["seeded 300"], 1)
+    except ValueError as exc:
+        need("16-byte" in str(exc), f"{name}: misaligned tier: {exc}")
+    else:
+        raise SmokeError(f"{name}: a tier 4 bytes off 16 was not refused")
+    torch.cuda.synchronize()
+    print(f"phase 1 (K3): k = {', '.join(map(str, TIER_KS))} stored words, "
+          f"3 row groups, 32-bit and pack16 slots, path ids "
+          f"{', '.join(map(str, TIER_IDS))}, masks of 65536 paths (int32 and "
+          "bytes), of 300 paths and all ones: all equal plain (tolerance "
+          "0); one launch a call (counter), one ell_tier_kernel and no "
+          "packing launch (profiler); a misaligned tier refused", flush=True)
 
 
 def phase_kernels_cross(errs: Errors):
@@ -1809,9 +1909,10 @@ def probe_matrix(seed, rows=64, cols=8192, complex_every=5):
     return a
 
 
-def compare_probes(errs, cross, m, what):
-    """K10-K12 on one matrix and mask against their plain versions; v2
-    with its flags all 1, all 0 and from tile_flags."""
+def compare_probes(errs, cross, m, what, suffix=""):
+    """K10-K12 on one matrix and mask against their plain versions, one
+    launch a call (the wrappers' counters); v2 with its flags all 1, all
+    0 and from tile_flags. Errors go to the rows named with ``suffix``."""
     import torch
 
     from pollen_tpu_torch.kernels import crossprobe as cp
@@ -1819,18 +1920,20 @@ def compare_probes(errs, cross, m, what):
     for mode, name in (("raw", "cross_probe_raw (K10)"),
                        ("vd", "cross_probe_vd (K10)"),
                        ("v1", "cross_probe_v1 (K11)")):
-        kernel = getattr(cp, f"cross_probe_{mode}")
-        errs.compare(name, kernel(cross, m), cp.cross_probe_plain(cross, m, mode),
-                     what)
-    n_tiles = cross.shape[1] // cp.TILE
+        one_launch(errs, name + suffix,
+                   functools.partial(getattr(cp, f"cross_probe_{mode}"), cross, m),
+                   functools.partial(cp.cross_probe_plain, cross, m, mode),
+                   f"cross_probe_{mode}", cp.launches, what)
+    n_tiles = cp.n_tiles(cross.shape[1])
     for label, flags in (
         ("ones", torch.ones(n_tiles, dtype=torch.int32, device="cuda")),
         ("zeros", torch.zeros(n_tiles, dtype=torch.int32, device="cuda")),
-        ("tile_flags", cp.tile_flags(cross, cp.TILE)),
+        ("tile_flags", cp.tile_flags(cross)),
     ):
-        errs.compare("cross_probe_v2 (K12)", cp.cross_probe_v2(cross, m, flags),
-                     cp.cross_probe_plain(cross, m, "v2", flags),
-                     f"{what} flags {label}")
+        one_launch(errs, "cross_probe_v2 (K12)" + suffix,
+                   functools.partial(cp.cross_probe_v2, cross, m, flags),
+                   functools.partial(cp.cross_probe_plain, cross, m, "v2", flags),
+                   "cross_probe_v2", cp.launches, f"{what} flags {label}")
 
 
 def phase_kernels_flat_probes(errs: Errors):
@@ -1888,17 +1991,40 @@ def phase_kernels_flat_probes(errs: Errors):
         want = [3 * m[5] + 7 * m[32768], 2 * m[40000], m[65535]]
         need(d[:3].tolist() == want, f"high path ids: depth {d[:3].tolist()}, "
              f"want {want}")
-    a = torch.from_numpy(probe_matrix(10)).cuda()
-    for _ in range(4):
-        compare_probes(errs, a, torch.from_numpy(rng.random(128) < 0.5).cuda(),
-                       "seeded 64 x 8192, every 5th tile complex")
+    from pollen_tpu_torch.kernels import crossprobe as cp
+
+    # A matrix whose columns are a multiple of 128 and not of v2's
+    # 512-column tile (a narrower last tile), and one of 2,500 byte rows
+    # (past the 2,048-row list chunk, restaged per tile).
+    for seed, (rows, cols), what in (
+        (10, (64, 8192), "seeded 64 x 8192, every 5th 128-column tile complex"),
+        (11, (64, 8320), "seeded 64 x 8320 (65 x 128), every 5th tile complex"),
+        (12, (2500, 640), "seeded 2500 x 640, every 5th tile complex"),
+    ):
+        a = torch.from_numpy(probe_matrix(seed, rows, cols)).cuda()
+        for m in [torch.from_numpy(rng.random(2 * rows) < 0.5).cuda()
+                  for _ in range(4)] + [
+                      torch.ones(2 * rows, dtype=torch.int32, device="cuda")]:
+            compare_probes(errs, a, m, what)
+    for mode in cp.MODES:
+        fn = getattr(cp, f"cross_probe_{mode}")
+        args = (cp.tile_flags(a),) if mode == "v2" else ()
+        prof = device_profile(functools.partial(fn, a, m, *args), reps=3)
+        print(f"cross_probe_{mode} call on the 2500 x 640 matrix: "
+              f"{describe_profile(prof)}", flush=True)
+        need(not prof or set(prof) == {"cross_kernel"},
+             f"cross_probe_{mode} is not one cross_kernel launch: "
+             f"{sorted(prof)}")
     torch.cuda.synchronize()
     print("phase 1 (K9-K12): the flat ELL kernel equals plain on 8 fixtures "
           "(build_ell with the planned K and K = 1, 2, 4, 16) and on path "
           "ids 5, 32768, 40000, 65535; the probe ladder (raw, vd, v1, v2 "
           "with flags all 1, all 0 and from tile_flags) equals plain on "
-          "the fixtures' nibble matrices and a seeded 64 x 8192 matrix; "
-          "4 masks each (tolerance 0: exact int32)", flush=True)
+          "the fixtures' nibble matrices and seeded 64 x 8192, 64 x 8320 "
+          "and 2500 x 640 matrices, 4 seeded masks and the all-ones mask "
+          "(tolerance 0: exact int32); each probe call one launch "
+          "(counters) and one cross_kernel, no packing launch (profiler)",
+          flush=True)
 
 
 def phase_flat_ell(graphs: dict) -> dict:
@@ -1996,9 +2122,11 @@ def phase_flat_probe_timing(graphs: dict, flat: dict, probes: dict,
                             errs: Errors, card: str) -> dict:
     """K9 against K3 on the same slots at chr8_third (flat against
     tall) at the planned K and at K = 2 and 4, then K9-K12 against
-    their plain versions and library calls (K10-K12 at both matrices,
-    first held against plain under a seeded random mask; the JSON line
-    keeps chr8_third's)."""
+    their plain versions and library calls: K10-K12 at bench_cross's
+    and chr8_third's matrices under the all-ones mask (first held
+    against plain under a seeded random mask too) and at the unfused
+    heavy block under a seeded mask; the JSON line keeps chr8_third's
+    rows and the unfused block's, as rows of their own."""
     import numpy as np
     import torch
 
@@ -2054,51 +2182,69 @@ def phase_flat_probe_timing(graphs: dict, flat: dict, probes: dict,
     )}
     out = time_kernels(times, card)
 
-    for name in ("bench_cross", "chr8_third"):
-        cross, mask, _ = probes[name]
+    _, dgu, _ = graphs["unfused"]
+    hu = dgu.ell_heavy
+    mu = torch.from_numpy(rng.random(dgu.num_paths) < 0.5).cuda()
+    for name, cross, mask, suffix in (
+        ("bench_cross", *probes["bench_cross"][:2], None),
+        ("chr8_third", *probes["chr8_third"][:2], ""),
+        ("unfused", hu, cm.pad_mask(mu, 2 * hu.shape[0]), UNFUSED_PROBES),
+    ):
         rows, n = cross.shape
-        # The probe path ran under the all-ones mask: a seeded random one
-        # exercises the row skip and the folding at full size.
-        m_rand = torch.from_numpy(rng.random(mask.numel()) < 0.5).cuda()
-        compare_probes(errs, cross, m_rand & (mask != 0),
-                       f"{name} matrix, a seeded random mask")
-        flags = cp.tile_flags(cross, cp.TILE)
+        if name != "unfused":
+            # The probe path ran under the all-ones mask: a seeded random
+            # one exercises the row skip and the folding at full size.
+            m_rand = torch.from_numpy(rng.random(mask.numel()) < 0.5).cuda()
+            compare_probes(errs, cross, m_rand & (mask != 0),
+                           f"{name} matrix, a seeded random mask")
+        compare_probes(errs, cross, mask, f"{name} matrix, the timed mask",
+                       suffix or "")
+        flags = cp.tile_flags(cross)
         mp = cm.pad_mask(mask, 2 * rows)
+        # The bound counts the byte rows the mask selects (a row whose
+        # two paths are both out of the mask is never read, by any rung),
+        # the mask, the outputs (and v2's flags).
+        live = int(((mp[0::2] != 0) | (mp[1::2] != 0)).sum())
+        io = live * n + 2 * rows + 8 * n
+        print(f"probes at {name}: the mask selects {int((mp != 0).sum())} "
+              f"paths, {live} of {rows} byte rows", flush=True)
         # The library calls: float32 products of the (folded) mask and a
         # copy of A made ahead of time (raw: the even paths against the
         # bytes as they are; the rest: the unpacked nibbles), depth only.
         even, raw_f = mp[0::2].float()[None], cross.float()
         fm, a_f = cm.fold_mask(mp).float()[None], cm.unpack_cross(cross).float()
         where = f"{name} matrix {tuple(cross.shape)}"
-        io = rows * n + 2 * rows + 8 * n
         times = {
             "cross_probe_raw (K10)": (
                 functools.partial(cp.cross_probe_raw, cross, mask),
                 functools.partial(cp.cross_probe_plain, cross, mask, "raw"),
-                where, bound(io, tensor_ops=2 * rows * n),
+                where, bound(io, tensor_ops=2 * live * n),
                 lambda: torch.matmul(even, raw_f),
             ),
             "cross_probe_vd (K10)": (
                 functools.partial(cp.cross_probe_vd, cross, mask),
                 functools.partial(cp.cross_probe_plain, cross, mask, "vd"),
-                where, bound(io, tensor_ops=2 * 2 * rows * n),
+                where, bound(io, tensor_ops=2 * 2 * live * n),
                 lambda: torch.matmul(fm, a_f),
             ),
             "cross_probe_v1 (K11)": (
                 functools.partial(cp.cross_probe_v1, cross, mask),
                 functools.partial(cp.cross_probe_plain, cross, mask, "v1"),
-                where, bound(io, tensor_ops=4 * 2 * rows * n),
+                where, bound(io, tensor_ops=4 * 2 * live * n),
                 lambda: torch.matmul(fm, a_f),
             ),
             "cross_probe_v2 (K12)": (
                 functools.partial(cp.cross_probe_v2, cross, mask, flags),
                 functools.partial(cp.cross_probe_plain, cross, mask, "v2", flags),
-                f"{where}, {int(flags.sum())}/{flags.numel()} tiles flagged",
-                bound(io + 4 * flags.numel(), tensor_ops=4 * 2 * rows * n),
+                f"{where}, {int(flags.sum())}/{flags.numel()} tiles of "
+                f"{cp.TILE} flagged",
+                bound(io + 4 * flags.numel(), tensor_ops=4 * 2 * live * n),
                 lambda: torch.matmul(fm, a_f),
             ),
         }
-        out.update(time_kernels(times, card))  # chr8_third's rows stay
+        rows_out = time_kernels(times, card)
+        if suffix is not None:  # bench_cross's rows are printed only
+            out.update({f"{k}{suffix}": v for k, v in rows_out.items()})
         del raw_f, a_f
         torch.cuda.empty_cache()
     out.update(time_cross_chr8(probes, errs, card, rng))
@@ -2191,6 +2337,7 @@ def main() -> int:
     phase_kernels_split(errs)
     phase_kernels_cross_batch(errs)
     phase_kernels_cross(errs)
+    phase_kernels_tier(errs)
     phase_kernels_scan(errs)
     phase_kernels_flat_probes(errs)
     stamp("phase 1 done")

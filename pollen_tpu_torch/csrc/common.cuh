@@ -12,8 +12,7 @@ namespace {
 
 constexpr int TALL_W = 4096;   // tall-layout width (ellscan.py TALL_W)
 constexpr int THREADS = 256;   // threads per block, every kernel
-constexpr int COL_BLOCKS = TALL_W / THREADS;  // tier blocks per tall row
-constexpr int H_COLS = 128;    // heavy columns per block (32 lanes x 4)
+constexpr int H_COLS = 128;    // crossing-matrix columns: a multiple of it
 constexpr int H_GROUPS = THREADS / 32;  // warps per block
 constexpr int MAX_SMEM_WORDS = 2048;    // 2^16 paths of mask bits
 

@@ -1,11 +1,11 @@
 // Masked segment depth over the resident ELL / crossing-matrix indexes,
-// written for Hopper (sm_90a). Four entry points; K3 and K9 read mask
-// bit words packed ahead of them, K2 and K1 read the raw mask, and K1
-// runs K2's tiles on its heavy block:
+// written for Hopper (sm_90a). Four entry points; K9 reads mask bit
+// words packed ahead of it, K1, K2 and K3 read the raw mask, K1 runs
+// K2's tiles on its heavy block, and K3 is K1's tier phase alone:
 //
-//   pollen_ell_tier     one tall tier of ELL slots. Replaces the TPU
-//                       kernel pollen_tpu/kernels/ellscan.py _kernel_tall
-//                       (K3), and also reads pack16 paired slots.
+//   pollen_ell_tier     one tall tier of ELL slots, 32-bit or pack16, in
+//                       ONE launch. Replaces the TPU kernel
+//                       pollen_tpu/kernels/ellscan.py _kernel_tall (K3).
 //   pollen_cross_depth  masked GEMV over a nibble- or int8-packed
 //                       crossing matrix, in one launch. Replaces
 //                       pollen_tpu/kernels/crossmat.py _kernel (K2),
@@ -23,26 +23,20 @@
 // by launch latency: the whole bench-shape index is ~2 MB and sits in
 // L2). The design keeps the bytes minimal and the accesses coalesced:
 //
-//   * K3 and K9 take the query mask packed into bit words (path p ->
-//     bit p%32 of word p/32) by a one-ballot-per-warp launch ahead of
-//     the kernel, so the caller hands over the raw 0/1 mask and pays one
-//     host call. Each block stages the words in shared memory (8 KB at
-//     2^16 paths) and looks a path's bit up directly. The TPU kernel's
-//     select tournament over scalar words has no place here. K1 and K2
-//     read the raw mask themselves (below).
-//   * K3's tier function: one thread per output column. A thread reads its
-//     K slot words at tall[(g*K + kk)*SUB + r, c]: neighbouring threads
-//     read neighbouring words, so every load is one coalesced 128-byte
-//     line per warp, and each slot word is read exactly once. Output
-//     column (g*SUB + r)*4096 + c is the natural column order, so no
-//     unfold pass is needed.
+//   * K9 takes the query mask packed into bit words (path p -> bit p%32
+//     of word p/32) by a one-ballot-per-warp launch ahead of the kernel,
+//     so the caller hands over the raw 0/1 mask and pays one host call.
+//     Each block stages the words in shared memory (8 KB at 2^16 paths)
+//     and looks a path's bit up directly. The TPU kernel's select
+//     tournament over scalar words has no place here. K1, K2 and K3 read
+//     the raw mask themselves (below).
 //   * Flat tier: one thread per column, its K slot words read down the
 //     column at ell[kk * n_pad + c], so each warp's load is one 128-byte
 //     line and every word is read once; outputs need no reordering. The
 //     TPU gave this layout up because its (1, width) stores pad to 8
 //     sublanes; on the GPU it is coalesced as it stands. Any n_pad works
 //     (the last block masks its ragged edge).
-//   * K2 (cross_kernel) is its own design, one launch a call:
+//   * K2 (cross_kernel, cross.cuh) is its own design, one launch a call:
 //       - Mask: each block reads the raw 0/1 mask itself and compacts the
 //         rows with a selected path into a list in shared memory (row,
 //         and which of its two nibbles count), so no packing launch runs
@@ -95,309 +89,28 @@
 //         paths. A slot costs one shared-memory bit lookup.
 //     The TPU's joint/sequential grid has no counterpart: tier and heavy
 //     tiles are all in flight together on the 132 SMs.
+//   * K3 (ell_tier_kernel) is K1's tier phase alone: the same routine
+//     (split_tiles with no heavy tiles), in a kernel that holds only the
+//     8 KB of bit words in shared memory (K1's holds ~40 KB for its row
+//     list and group sums), so more blocks fit an SM; no packing launch
+//     and no scratch. Tier outputs need 16-byte-aligned slots and
+//     outputs (the wrapper refuses others). Its tier-only launch of K1's
+//     kernel instead is `kernel_ab`'s k3_splitn build (PERF.md).
 
-#include "common.cuh"
+#include "cross.cuh"
 
 namespace {
-
-// One tier: block `blk` of the tier's g*sub*COL_BLOCKS blocks.
-__device__ __forceinline__ void tier_column(
-    const Tier& t, int sub, int pack16, const int* words, int n_words,
-    long long blk) {
-  const long long tile_row = blk / COL_BLOCKS;  // g*sub + r
-  const int c = (int)(blk % COL_BLOCKS) * THREADS + threadIdx.x;
-  const long long g = tile_row / sub;
-  const int r = (int)(tile_row % sub);
-  int d = 0;
-  int u = 0;
-  for (int kk = 0; kk < t.k; ++kk) {
-    const long long row = (g * t.k + kk) * sub + r;
-    const unsigned v = (unsigned)__ldg(t.slots + row * TALL_W + c);
-    if (pack16) {
-      // Two path<<8|count halves; the low half is the even slot.
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const unsigned h = (v >> (16 * half)) & 0xFFFFu;
-        const int bit = mask_bit(words, n_words, (h >> 8) & 0xFFu);
-        d += bit * (int)(h & 0xFFu);
-        u += bit & (int)(h != 0u);
-      }
-    } else {
-      // path<<16|count; unsigned shifts, so paths >= 2^15 stay positive.
-      const int bit = mask_bit(words, n_words, (v >> 16) & 0xFFFFu);
-      d += bit * (int)(v & 0xFFFFu);
-      u += bit & (int)(v != 0u);
-    }
-  }
-  const long long n = tile_row * TALL_W + c;
-  t.depth[n] = d;
-  t.uniq[n] = u;
-}
-
-__global__ void __launch_bounds__(THREADS) ell_tier_kernel(
-    Tier t, int sub, int pack16, const int* words, int n_words) {
-  __shared__ int s_words[MAX_SMEM_WORDS];
-  const int* w = stage_words(s_words, words, n_words, MAX_SMEM_WORDS);
-  tier_column(t, sub, pack16, w, n_words, blockIdx.x);
-}
-
-// K2: see the design notes above.
-constexpr int X_COLS = 16;                    // columns a thread owns
-constexpr int X_WARP_COLS = 32 * X_COLS;      // a warp's columns
-constexpr int X_BLOCK_COLS = H_GROUPS * X_WARP_COLS;  // a block's, 1 group
-constexpr int X_BATCH = 8;         // list rows in flight a thread
-constexpr int X_ROW_CHUNK = 2048;  // list entries staged at a time
-constexpr int X_MIN_BLOCKS = 2;    // at most 128 registers a thread
-
-struct CrossArgs {
-  const uint8_t* a;  // (rows, n_pad) nibble or int8 cells
-  int rows;
-  long long n_pad;   // a multiple of 128
-  const void* mask;  // raw 0/1 mask, n_paths entries of elem_bytes
-  int elem_bytes;
-  int n_paths;
-  int* depth;        // int32[n_pad]
-  int* uniq;         // int32[n_pad] (unused by the depth-only variant)
-  int groups;        // row groups a block splits its list into: 1-8
-  int tiles;         // column tiles of X_BLOCK_COLS / groups
-};
-
-// Row r's code: bit 0 the low nibble's path (or the int8 row's), bit 1
-// the high nibble's.
-template <bool NIBBLE>
-__device__ __forceinline__ int row_code(const CrossArgs& x, long long r) {
-  const auto bit = [&](long long p) {
-    return raw_mask_bit(x.mask, x.elem_bytes, x.n_paths, p);
-  };
-  return NIBBLE ? bit(2 * r) | bit(2 * r + 1) << 1 : bit(r);
-}
-
-// The rows [r0, r0 + cnt) with a selected path, as row << 2 | code in
-// `list` (code bit 0: the low nibble's path, or the int8 row's; bit 1:
-// the high nibble's); returns how many. The order is arbitrary: the
-// sums are integers. Every thread of the block calls it.
-template <bool NIBBLE>
-__device__ int stage_rows(const CrossArgs& x, int r0, int cnt, int* list,
-                          int* count) {
-  __syncthreads();  // the previous list has been read
-  if (threadIdx.x == 0) *count = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < cnt; base += THREADS) {  // block-uniform
-    const int i = base + threadIdx.x;
-    const int code = i < cnt ? row_code<NIBBLE>(x, r0 + i) : 0;
-    const unsigned b = __ballot_sync(0xFFFFFFFFu, code != 0);
-    int at = 0;
-    if (lane == 0 && b) at = atomicAdd(count, __popc(b));
-    at = __shfl_sync(0xFFFFFFFFu, at, 0) + __popc(b & ((1u << lane) - 1u));
-    if (code) list[at] = (r0 + i) << 2 | code;
-  }
-  __syncthreads();
-  return *count;
-}
-
-template <bool VEC>
-__device__ __forceinline__ uint4 load16(const uint8_t* p) {
-  if (VEC) return __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned* q = reinterpret_cast<const unsigned*>(p);
-  return make_uint4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
-}
-
-__device__ __forceinline__ unsigned word_of(const uint4& v, int w) {
-  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
-}
-
-// Adds list rows [lo, hi) of the 16 columns at `col` into d and u.
-template <bool NIBBLE, bool WANT_U, bool VEC>
-__device__ __forceinline__ void cross_rows(const CrossArgs& x, long long col,
-                                           const int* list, int lo, int hi,
-                                           int (&d)[X_COLS],
-                                           int (&u)[X_COLS]) {
-  int n_sel = 0;  // rows with a selected path
-  for (int b = lo; b < hi; b += X_BATCH) {
-    uint4 v[X_BATCH];
-    int code[X_BATCH];
-#pragma unroll
-    for (int k = 0; k < X_BATCH; ++k) {
-      const int e = b + k < hi ? list[b + k] : 0;  // code 0: no row
-      code[k] = e & 3;
-      n_sel += code[k] != 0;
-      v[k] = code[k] ? load16<VEC>(x.a + (long long)(e >> 2) * x.n_pad + col)
-                     : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      if (NIBBLE) {
-        unsigned ds = 0, us = 0;  // byte lanes: <= 240 and <= 16
-#pragma unroll
-        for (int k = 0; k < X_BATCH; ++k) {
-          const unsigned q = word_of(v[k], w);
-          const unsigned lo_n = q & (code[k] & 1 ? 0x0F0F0F0Fu : 0u);
-          const unsigned hi_n = (q >> 4) & (code[k] & 2 ? 0x0F0F0F0Fu : 0u);
-          ds += lo_n + hi_n;
-          if (WANT_U) {
-            us += (((lo_n + 0x0F0F0F0Fu) & 0x10101010u) +
-                   ((hi_n + 0x0F0F0F0Fu) & 0x10101010u)) >> 4;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          d[4 * w + j] += (int)__byte_perm(ds, 0u, 0x4440u + j);
-          if (WANT_U) u[4 * w + j] += (int)__byte_perm(us, 0u, 0x4440u + j);
-        }
-      } else {
-        // 16-bit lanes of a + 128: even bytes, odd bytes (<= 2040).
-        unsigned de = 0, dod = 0, ue = 0, uod = 0;
-#pragma unroll
-        for (int k = 0; k < X_BATCH; ++k) {
-          const unsigned q =
-              (word_of(v[k], w) ^ 0x80808080u) & (code[k] ? ~0u : 0u);
-          de += q & 0x00FF00FFu;
-          dod += (q >> 8) & 0x00FF00FFu;
-          if (WANT_U) {
-            const unsigned m = __vminu4(q, 0x81818181u);
-            ue += m & 0x00FF00FFu;
-            uod += (m >> 8) & 0x00FF00FFu;
-          }
-        }
-        d[4 * w] += (int)(de & 0xFFFFu);
-        d[4 * w + 1] += (int)(dod & 0xFFFFu);
-        d[4 * w + 2] += (int)(de >> 16);
-        d[4 * w + 3] += (int)(dod >> 16);
-        if (WANT_U) {
-          u[4 * w] += (int)(ue & 0xFFFFu);
-          u[4 * w + 1] += (int)(uod & 0xFFFFu);
-          u[4 * w + 2] += (int)(ue >> 16);
-          u[4 * w + 3] += (int)(uod >> 16);
-        }
-      }
-    }
-  }
-  if (!NIBBLE) {
-    const int off = 128 * n_sel;
-#pragma unroll
-    for (int j = 0; j < X_COLS; ++j) {
-      d[j] -= off;
-      if (WANT_U) u[j] -= off;
-    }
-  }
-}
-
-__device__ __forceinline__ void store16(int* p, const int (&v)[X_COLS]) {
-#pragma unroll
-  for (int j = 0; j < X_COLS; j += 4) {
-    *reinterpret_cast<int4*>(p + j) =
-        make_int4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-  }
-}
-
-// One column tile of K2: the list rows of each row group summed into its
-// columns (list chunks restaged here when the rows pass X_ROW_CHUNK),
-// the groups added in shared memory, the sums stored. `n_sel` is the
-// staged list's length. Every thread of the block calls it.
-template <bool NIBBLE, bool WANT_U, bool VEC>
-__device__ __forceinline__ void cross_tile(const CrossArgs& x, int tile,
-                                           int& n_sel, int* s_list,
-                                           int* s_count,
-                                           int (*s_red)[X_BLOCK_COLS]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wpg = H_GROUPS / x.groups;  // warps a row group
-  const int g = warp / wpg;
-  const int cols = X_WARP_COLS * wpg;  // a tile's columns
-  const int local = (warp % wpg) * X_WARP_COLS + lane * X_COLS;
-  const int chunks = (x.rows + X_ROW_CHUNK - 1) / X_ROW_CHUNK;
-  const long long col = (long long)tile * cols + local;
-  const bool live = col < x.n_pad;  // all 16 columns or none
-  int d[X_COLS], u[X_COLS];
-#pragma unroll
-  for (int j = 0; j < X_COLS; ++j) d[j] = u[j] = 0;
-  for (int c = 0; c < chunks; ++c) {  // block-uniform
-    if (chunks > 1) {
-      n_sel = stage_rows<NIBBLE>(x, c * X_ROW_CHUNK,
-                                 min(X_ROW_CHUNK, x.rows - c * X_ROW_CHUNK),
-                                 s_list, s_count);
-    }
-    const int lo = (int)((long long)n_sel * g / x.groups);
-    const int hi = (int)((long long)n_sel * (g + 1) / x.groups);
-    if (live) cross_rows<NIBBLE, WANT_U, VEC>(x, col, s_list, lo, hi, d, u);
-  }
-  if (x.groups == 1) {
-    if (live) {
-      store16(x.depth + col, d);
-      if (WANT_U) store16(x.uniq + col, u);
-    }
-    return;
-  }
-  if (live) {
-    store16(&s_red[0][g * cols + local], d);
-    if (WANT_U) store16(&s_red[1][g * cols + local], u);
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < cols; c += THREADS) {
-    const long long oc = (long long)tile * cols + c;
-    if (oc >= x.n_pad) break;
-    int sd = 0, su = 0;
-    for (int gi = 0; gi < x.groups; ++gi) {
-      sd += s_red[0][gi * cols + c];
-      if (WANT_U) su += s_red[1][gi * cols + c];
-    }
-    x.depth[oc] = sd;
-    if (WANT_U) x.uniq[oc] = su;
-  }
-  __syncthreads();  // s_red is rewritten by the next tile
-}
-
-template <bool NIBBLE, bool WANT_U, bool VEC>
-__global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
-    cross_kernel(CrossArgs x) {
-  __shared__ int s_list[X_ROW_CHUNK];
-  __shared__ int s_count;
-  __shared__ __align__(16) int s_red[2][X_BLOCK_COLS];  // groups > 1
-  const int chunks = (x.rows + X_ROW_CHUNK - 1) / X_ROW_CHUNK;
-  int n_sel = chunks == 1
-                  ? stage_rows<NIBBLE>(x, 0, x.rows, s_list, &s_count)
-                  : 0;
-  for (int tile = blockIdx.x; tile < x.tiles; tile += gridDim.x) {
-    cross_tile<NIBBLE, WANT_U, VEC>(x, tile, n_sel, s_list, &s_count, s_red);
-  }
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms < 1) sms = 1;
-  }
-  return sms;
-}
-
-// One launch of K2: at most the blocks the card holds at once (found on
-// the first call of each build, before any graph capture).
-template <bool NIBBLE, bool WANT_U, bool VEC>
-void launch_cross(const CrossArgs& x, cudaStream_t st) {
-  static int resident = 0;
-  if (resident == 0) {
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cross_kernel<NIBBLE, WANT_U, VEC>, THREADS, 0);
-    resident = sm_count() * (per_sm > 0 ? per_sm : 1);
-  }
-  const int blocks = x.tiles < resident ? x.tiles : resident;
-  cross_kernel<NIBBLE, WANT_U, VEC><<<blocks, THREADS, 0, st>>>(x);
-}
 
 template <bool NIBBLE>
 void launch_cross_u(const CrossArgs& x, bool want_u, bool vec,
                     cudaStream_t st) {
+  constexpr int CELLS = NIBBLE ? CELLS_NIBBLE : CELLS_INT8;
   if (want_u) {
-    vec ? launch_cross<NIBBLE, true, true>(x, st)
-        : launch_cross<NIBBLE, true, false>(x, st);
+    vec ? launch_cross<CELLS, U_SUM, true>(x, st)
+        : launch_cross<CELLS, U_SUM, false>(x, st);
   } else {
-    vec ? launch_cross<NIBBLE, false, true>(x, st)
-        : launch_cross<NIBBLE, false, false>(x, st);
+    vec ? launch_cross<CELLS, U_NONE, true>(x, st)
+        : launch_cross<CELLS, U_NONE, false>(x, st);
   }
 }
 
@@ -422,10 +135,11 @@ __global__ void __launch_bounds__(THREADS) ell_flat_kernel(
   uniq[c] = u;
 }
 
-// K1: see the design notes above.
+// K1 and K3: see the design notes above.
 constexpr int T_COLS = 4;  // tier columns a thread owns
 constexpr int T_BLOCK_COLS = THREADS * T_COLS;
 constexpr int T_ROW_TILES = TALL_W / T_BLOCK_COLS;  // tier tiles a tall row
+constexpr int T_MIN_BLOCKS = 4;  // K3: at most 64 registers a thread
 
 struct SplitArgs {
   Tier t[3];
@@ -504,15 +218,15 @@ __device__ __forceinline__ void tier_tile_k(const Tier& t, int sub,
   }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
-    ell_splitn_kernel(SplitArgs x) {
-  __shared__ int s_list[X_ROW_CHUNK];
-  __shared__ int s_count;
-  // The heavy tiles' group sums; once a block reaches its tier tiles
-  // (they come after every heavy tile), the mask's bit words.
-  __shared__ __align__(16) int s_red[2][X_BLOCK_COLS];
-  static_assert(MAX_SMEM_WORDS <= 2 * X_BLOCK_COLS, "bit words fit s_red");
+// The tiles of a split launch on a persistent grid: heavy tiles first
+// (HEAVY only), then the tiers'. `s_red` holds the heavy tiles' group
+// sums (2 * X_BLOCK_COLS ints; `s_list` and `s_count` their row list)
+// and, once a block reaches its tier tiles (they come after every heavy
+// tile), the mask's bit words (MAX_SMEM_WORDS ints). Every thread of the
+// block calls it.
+template <bool VEC, bool HEAVY>
+__device__ __forceinline__ void split_tiles(const SplitArgs& x, int* s_list,
+                                            int* s_count, int* s_red) {
   const CrossArgs& h = x.h;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -522,7 +236,6 @@ __global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
   const int* words = nullptr;
   const auto stage = [&]() -> const int* {
     if (words == nullptr) {  // block-uniform
-      int* w = &s_red[0][0];
       constexpr int WARPS = THREADS / 32;
       constexpr int BATCH = 8;  // words a warp loads before its ballots
       for (int w0 = warp; w0 < n_words; w0 += WARPS * BATCH) {
@@ -536,24 +249,27 @@ __global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
         for (int i = 0; i < BATCH; ++i) {
           const unsigned b = __ballot_sync(0xFFFFFFFFu, bit[i]);
           const int wi = w0 + i * WARPS;
-          if (lane == 0 && wi < n_words) w[wi] = (int)b;
+          if (lane == 0 && wi < n_words) s_red[wi] = (int)b;
         }
       }
       __syncthreads();
-      words = w;
+      words = s_red;
     }
     return words;
   };
   for (long long tile = blockIdx.x; tile < x.tiles; tile += gridDim.x) {
-    if (tile < h.tiles) {
-      if (n_sel < 0) {
-        n_sel = h.rows <= X_ROW_CHUNK
-                    ? stage_rows<true>(h, 0, h.rows, s_list, &s_count)
-                    : 0;
+    if constexpr (HEAVY) {
+      if (tile < h.tiles) {
+        if (n_sel < 0) {
+          n_sel = h.rows <= X_ROW_CHUNK
+                      ? stage_rows<true>(h, 0, h.rows, s_list, s_count)
+                      : 0;
+        }
+        cross_tile<CELLS_NIBBLE, U_SUM, VEC>(
+            h, (int)tile, n_sel, s_list, s_count,
+            reinterpret_cast<int (*)[X_BLOCK_COLS]>(s_red));
+        continue;
       }
-      cross_tile<true, true, VEC>(h, (int)tile, n_sel, s_list, &s_count,
-                                  s_red);
-      continue;
     }
     long long b = tile - h.tiles;
     for (int i = 0; i < x.nt; ++i) {
@@ -571,53 +287,76 @@ __global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
   }
 }
 
-// Row groups of K2's tiles over n_pad columns: the fewest that still
-// give every SM two tiles.
-int cross_groups(long long n_pad) {
-  int groups = 1;
-  while (groups < H_GROUPS &&
-         (n_pad + X_BLOCK_COLS / groups - 1) / (X_BLOCK_COLS / groups) <
-             2LL * sm_count()) {
-    groups *= 2;
-  }
-  return groups;
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
+    ell_splitn_kernel(SplitArgs x) {
+  __shared__ int s_list[X_ROW_CHUNK];
+  __shared__ int s_count;
+  __shared__ __align__(16) int s_red[2][X_BLOCK_COLS];
+  static_assert(MAX_SMEM_WORDS <= 2 * X_BLOCK_COLS, "bit words fit s_red");
+  split_tiles<VEC, true>(x, s_list, &s_count, &s_red[0][0]);
 }
 
-// One launch of K1 on a persistent grid, as launch_cross.
-template <bool VEC>
+__global__ void __launch_bounds__(THREADS, T_MIN_BLOCKS)
+    ell_tier_kernel(SplitArgs x) {
+  __shared__ int s_words[MAX_SMEM_WORDS];
+  split_tiles<true, false>(x, nullptr, nullptr, s_words);
+}
+
+// One launch of K1 (HEAVY) or K3 on a persistent grid, as launch_cross.
+template <bool VEC, bool HEAVY>
 void launch_splitn(const SplitArgs& x, cudaStream_t st) {
   static int resident = 0;
   if (resident == 0) {
     int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ell_splitn_kernel<VEC>, THREADS, 0);
+    if constexpr (HEAVY) {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ell_splitn_kernel<VEC>, THREADS, 0);
+    } else {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ell_tier_kernel,
+                                                    THREADS, 0);
+    }
     resident = sm_count() * (per_sm > 0 ? per_sm : 1);
   }
-  const long long blocks = x.tiles < resident ? x.tiles : resident;
-  ell_splitn_kernel<VEC><<<(unsigned)blocks, THREADS, 0, st>>>(x);
+  const unsigned blocks = (unsigned)(x.tiles < resident ? x.tiles : resident);
+  if constexpr (HEAVY) {
+    ell_splitn_kernel<VEC><<<blocks, THREADS, 0, st>>>(x);
+  } else {
+    ell_tier_kernel<<<blocks, THREADS, 0, st>>>(x);
+  }
+}
+
+Tier tier_of(const void* slots, int k, int g, void* depth, void* uniq) {
+  return {static_cast<const int*>(slots), k, g, static_cast<int*>(depth),
+          static_cast<int*>(uniq)};
+}
+
+// The raw mask and no heavy block.
+CrossArgs mask_only(const void* mask, int elem_bytes, int n_paths) {
+  return {nullptr, 0, 0, mask, elem_bytes, n_paths, nullptr, nullptr, 1, 0,
+          nullptr};
 }
 
 }  // namespace
 
 extern "C" {
 
-// Every entry point takes the raw mask (`elem_bytes` 1 or 4 per path);
-// K3 and K9 also a scratch buffer of n_words int32 for its bit words.
+// K1, K2 and K3 take the raw mask (`elem_bytes` 1 or 4 per path); K9
+// also a scratch buffer of n_words int32 for its bit words.
 
+// K3: tier slots and outputs 16-byte aligned.
 int pollen_ell_tier(const void* slots, int k, int g, int sub, int pack16,
                     const void* mask, int elem_bytes, int n_paths,
-                    void* words, int n_words, void* depth, void* uniq,
-                    void* stream) {
+                    void* depth, void* uniq, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
-  Tier t{static_cast<const int*>(slots), k, g, static_cast<int*>(depth),
-         static_cast<int*>(uniq)};
-  const long long blocks = (long long)g * sub * COL_BLOCKS;
-  if (blocks > 0) {
-    ell_tier_kernel<<<(unsigned)blocks, THREADS, 0, st>>>(t, sub, pack16, w,
-                                                          n_words);
+  if ((reinterpret_cast<uintptr_t>(slots) | reinterpret_cast<uintptr_t>(depth) |
+       reinterpret_cast<uintptr_t>(uniq)) % 16) {
+    return (int)cudaErrorInvalidValue;
   }
+  SplitArgs x{{tier_of(slots, k, g, depth, uniq)},
+              1, sub, pack16, mask_only(mask, elem_bytes, n_paths),
+              (long long)g * sub * T_ROW_TILES};
+  if (x.tiles > 0) launch_splitn<true, false>(x, st);
   return (int)cudaGetLastError();
 }
 
@@ -634,11 +373,10 @@ int pollen_cross_depth(const void* a, int rows, long long n_pad, int nibble,
     return (int)cudaErrorInvalidValue;
   }
   if (n_pad <= 0) return (int)cudaGetLastError();
-  const int groups = cross_groups(n_pad);
-  const int cols = X_BLOCK_COLS / groups;
   CrossArgs x{static_cast<const uint8_t*>(a), rows, n_pad, mask, elem_bytes,
               n_paths, static_cast<int*>(depth), static_cast<int*>(uniq),
-              groups, (int)((n_pad + cols - 1) / cols)};
+              1, 0, nullptr};
+  plan_cross(x);
   const bool vec = reinterpret_cast<uintptr_t>(a) % 16 == 0;
   if (nibble) {
     launch_cross_u<true>(x, uniq != nullptr, vec, st);
@@ -659,17 +397,9 @@ int pollen_ell_splitn(int nt,
                       void* uh, int sub, int pack16, const void* mask,
                       int elem_bytes, int n_paths, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SplitArgs x{
-      {{static_cast<const int*>(s0), k0, g0, static_cast<int*>(d0),
-        static_cast<int*>(u0)},
-       {static_cast<const int*>(s1), k1, g1, static_cast<int*>(d1),
-        static_cast<int*>(u1)},
-       {static_cast<const int*>(s2), k2, g2, static_cast<int*>(d2),
-        static_cast<int*>(u2)}},
-      nt, sub, pack16,
-      {static_cast<const uint8_t*>(heavy), h_rows, nh_pad, mask, elem_bytes,
-       n_paths, static_cast<int*>(dh), static_cast<int*>(uh), 1, 0},
-      0};
+  SplitArgs x{{tier_of(s0, k0, g0, d0, u0), tier_of(s1, k1, g1, d1, u1),
+               tier_of(s2, k2, g2, d2, u2)},
+              nt, sub, pack16, mask_only(mask, elem_bytes, n_paths), 0};
   uintptr_t align = 0;
   for (int i = 0; i < nt; ++i) {
     align |= reinterpret_cast<uintptr_t>(x.t[i].slots) |
@@ -682,17 +412,20 @@ int pollen_ell_splitn(int nt,
       return (int)cudaErrorInvalidValue;
     }
     align |= reinterpret_cast<uintptr_t>(dh) | reinterpret_cast<uintptr_t>(uh);
-    x.h.groups = cross_groups(nh_pad);
-    const int cols = X_BLOCK_COLS / x.h.groups;
-    x.h.tiles = (nh_pad + cols - 1) / cols;
+    x.h.a = static_cast<const uint8_t*>(heavy);
+    x.h.rows = h_rows;
+    x.h.n_pad = nh_pad;
+    x.h.depth = static_cast<int*>(dh);
+    x.h.uniq = static_cast<int*>(uh);
+    plan_cross(x.h);
     x.tiles += x.h.tiles;
   }
   if (align % 16) return (int)cudaErrorInvalidValue;
   if (x.tiles == 0) return (int)cudaGetLastError();
   if (heavy == nullptr || reinterpret_cast<uintptr_t>(heavy) % 16 == 0) {
-    launch_splitn<true>(x, st);
+    launch_splitn<true, true>(x, st);
   } else {
-    launch_splitn<false>(x, st);
+    launch_splitn<false, true>(x, st);
   }
   return (int)cudaGetLastError();
 }

@@ -53,13 +53,16 @@ _L = ctypes.c_longlong
 # C signatures of the csrc/*.cu entry points (pointers and the stream
 # as c_void_p: a bare Python int would be passed as a 32-bit int).
 _MASK = (_P, _I, _I, _P, _I)  # mask, elem_bytes, n_paths, words, n_words
+_RAW = (_P, _I, _I)  # a raw mask (no bit words): mask, elem_bytes, n_paths
 SIGNATURES = {
-    "pollen_ell_tier": (_P, _I, _I, _I, _I, *_MASK, _P, _P, _P),
-    # matrix, rows, n_pad, nibble, raw mask (no words), depth, uniq, stream
-    "pollen_cross_depth": (_P, _I, _L, _I, _P, _I, _I, _P, _P, _P),
+    # slots, k, g, sub, pack16, raw mask, depth, uniq, stream
+    "pollen_ell_tier": (_P, _I, _I, _I, _I, *_RAW, _P, _P, _P),
+    # matrix, rows, n_pad, nibble, raw mask, depth, uniq, stream
+    "pollen_cross_depth": (_P, _I, _L, _I, *_RAW, _P, _P, _P),
     "pollen_ell_flat": (_P, _I, _L, *_MASK, _P, _P, _P),  # slots, k, n_pad
-    # probes.cu: mode, matrix, rows, n_pad, mask, flags, depth, uniq, stream
-    "pollen_cross_probe": (_I, _P, _I, _I, *_MASK, _P, _P, _P, _P),
+    # probes.cu: mode, matrix, rows, n_pad, raw mask, flags, depth, uniq,
+    # stream
+    "pollen_cross_probe": (_I, _P, _I, _L, *_RAW, _P, _P, _P, _P),
     "pollen_ell_splitn": (
         _I,  # number of tiers
         _P, _I, _I, _P, _P,  # tier 0: slots, k, g, depth, uniq
@@ -67,7 +70,7 @@ SIGNATURES = {
         _P, _I, _I, _P, _P,  # tier 2
         _P, _I, _I, _P, _P,  # heavy: bytes, rows, nh_pad, depth, uniq
         _I, _I,  # sub, pack16
-        _P, _I, _I,  # raw mask, elem_bytes, n_paths (no bit words)
+        *_RAW,
         _P,  # stream
     ),
     # depth_batch.cu: masks are (q, n_paths), words q*n_words

@@ -7,16 +7,17 @@ into its stages on the card.
          multiply-add per byte)
     vd   the exact masked depth, returned as both outputs (no indicator)
     v1   exact (depth, uniq), the same function as the dense query
-    v2   v1, but a tile whose flag is 0 returns depth as uniq: exact
-         when the flags come from :func:`tile_flags`
+    v2   v1, but a tile of :data:`TILE` columns whose flag is 0 returns
+         depth as uniq: exact when the flags come from :func:`tile_flags`
 
 Each takes the uint8 (P/2, N) nibble matrix and the raw 0/1 mask in path
 order (padded or cut to P), and folds it as the dense query does. Ports
 of the TPU probes ``probes/crossmat_floor.py`` (raw, vd) and
-``probes/crossmat_variants.py`` (v1, v2); the CUDA kernel is
-``csrc/probes.cu`` pollen_cross_probe. A wrapper runs the plain version
-only for tensors on the CPU; on a CUDA tensor it launches its kernel or
-raises.
+``probes/crossmat_variants.py`` (v1, v2); the CUDA kernel is the dense
+query's own (``csrc/probes.cu`` pollen_cross_probe runs
+``csrc/cross.cuh`` cross_kernel), one launch a call. A wrapper runs the
+plain version only for tensors on the CPU; on a CUDA tensor it launches
+its kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,24 +27,38 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .crossmat import check_cross, masked_cross_depth_plain, pad_mask
+from .crossmat import LANES, check_cross, masked_cross_depth_plain, pad_mask
 
 MODES = ("raw", "vd", "v1", "v2")
-# Columns per CUDA block: the tile of v2's flags on the card.
-TILE = 128
+# Columns of one v2 flag: a warp's span of the dense query's tile (32
+# lanes x 16 columns), so that the kernel's branch on it is warp-uniform
+# whatever the tile's row groups. When the columns are not a multiple of
+# it, the last tile is narrower.
+TILE = 512
 
 # Launch counts of the CUDA kernel, per mode (plain calls do not count).
 launches = {f"cross_probe_{m}": 0 for m in MODES}
 
 
-def tile_flags(cross: torch.Tensor, width: int) -> torch.Tensor:
-    """int32[N / width], 1 where a tile of ``width`` columns of the
-    nibble matrix holds any count >= 2, on the matrix's device."""
+def n_tiles(n_pad: int, width: int = TILE) -> int:
+    """Tiles of ``width`` columns over ``n_pad``, the last one ragged."""
+    return -(-n_pad // width)
+
+
+def tile_flags(cross: torch.Tensor, width: int = TILE) -> torch.Tensor:
+    """int32[ceil(N / width)], 1 where a tile of ``width`` columns of the
+    nibble matrix (the last tile: what is left) holds any count >= 2, on
+    the matrix's device."""
     n_pad = cross.shape[1]
-    if width <= 0 or n_pad % width:
-        raise ValueError(f"{n_pad} columns do not split into tiles of {width}")
-    big = ((cross & 15) >= 2) | ((cross >> 4) >= 2)
-    return big.any(dim=0).reshape(n_pad // width, width).any(dim=1).to(torch.int32)
+    if width <= 0 or width % LANES:
+        raise ValueError(
+            f"tiles of {width} columns: a tile is a positive multiple of "
+            f"{LANES} columns, as the matrix is"
+        )
+    big = (((cross & 15) >= 2) | ((cross >> 4) >= 2)).any(dim=0)
+    tiles = n_tiles(n_pad, width)
+    big = torch.nn.functional.pad(big, (0, tiles * width - n_pad))
+    return big.reshape(tiles, width).any(dim=1).to(torch.int32)
 
 
 def cross_probe_plain(
@@ -51,9 +66,10 @@ def cross_probe_plain(
     mask: torch.Tensor,
     mode: str,
     flags: Optional[torch.Tensor] = None,
+    width: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the probe ``mode``; v2's tile width is the
-    matrix's columns over the number of flags."""
+    """Plain version of the probe ``mode``; v2 reads one flag per tile
+    of ``width`` columns (the last tile ragged)."""
     check_cross(cross, nibble=True)
     rows, n_pad = cross.shape
     mp = pad_mask(mask, 2 * rows)
@@ -67,25 +83,27 @@ def cross_probe_plain(
         return depth, uniq
     if mode != "v2":
         raise ValueError(f"unknown probe mode {mode!r}, want one of {MODES}")
-    if flags is None or flags.dim() != 1 or n_pad % max(flags.shape[0], 1):
-        raise ValueError(f"v2 needs one flag per tile of {n_pad} columns")
-    keep = flags.repeat_interleave(n_pad // flags.shape[0]) != 0
+    tiles = n_tiles(n_pad, width)
+    if flags is None or flags.dim() != 1 or flags.shape[0] != tiles:
+        raise ValueError(f"v2 needs one flag per {width} columns ({tiles})")
+    keep = flags.repeat_interleave(width)[:n_pad] != 0
     return depth, torch.where(keep, uniq, depth)
 
 
 def _probe(mode, cross, mask, flags=None):
     check_cross(cross, nibble=True)
     rows, n_pad = cross.shape
+    tiles = n_tiles(n_pad)
     if mode == "v2" and (
         flags is None
         or flags.dim() != 1
-        or flags.shape[0] != n_pad // TILE
+        or flags.shape[0] != tiles
         or flags.dtype != torch.int32
         or flags.device != cross.device
     ):
         raise ValueError(
             f"v2 needs int32 flags on {cross.device}, one per {TILE} "
-            f"columns ({n_pad // TILE})"
+            f"columns ({tiles})"
         )
     if cross.device.type == "cpu":
         return cross_probe_plain(cross, mask, mode, flags)
@@ -93,16 +111,16 @@ def _probe(mode, cross, mask, flags=None):
         raise ValueError(f"no kernel for device {cross.device}")
     from .ellscan import alloc_outputs, kernel_mask
 
-    mask, elem, n_paths, n_words = kernel_mask(mask, cross.device)
-    depth, uniq, words = alloc_outputs([n_pad, n_pad], n_words, cross.device)
+    mask, elem, n_paths, _ = kernel_mask(mask, cross.device)
+    depth, uniq, _ = alloc_outputs([n_pad, n_pad], 0, cross.device)
     flags = flags.contiguous() if flags is not None else None
     _build.check(
         "pollen_cross_probe",
         _build.load().pollen_cross_probe(
             MODES.index(mode), cross.data_ptr(), rows, n_pad, mask.data_ptr(),
-            elem, n_paths, words.data_ptr(), n_words,
-            None if flags is None else flags.data_ptr(), depth.data_ptr(),
-            uniq.data_ptr(), torch.cuda.current_stream(cross.device).cuda_stream,
+            elem, n_paths, None if flags is None else flags.data_ptr(),
+            depth.data_ptr(), uniq.data_ptr(),
+            torch.cuda.current_stream(cross.device).cuda_stream,
         ),
     )
     launches[f"cross_probe_{mode}"] += 1
@@ -126,5 +144,5 @@ def cross_probe_v1(cross, mask):
 
 def cross_probe_v2(cross, mask, flags):
     """K12: v1 with a per-tile uniq skip; ``flags`` int32, one per
-    :data:`TILE` columns."""
+    :data:`TILE` columns (:func:`n_tiles`)."""
     return _probe("v2", cross, mask, flags)

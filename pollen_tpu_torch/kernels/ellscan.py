@@ -364,8 +364,7 @@ def _check_splitn(tiers, heavy, ks):
     if not 1 <= len(tiers) <= 3 or len(tiers) != len(ks):
         raise ValueError(f"need 1-3 tiers with one k each, got {len(ks)}")
     gs = [_check_tall(t, k) for t, k in zip(tiers, ks)]
-    if any(t.data_ptr() % 16 for t in tiers):
-        raise ValueError("tier slots must start on a 16-byte boundary")
+    _check_aligned(tiers)
     has_heavy = heavy.numel() > 0
     if has_heavy:
         from .crossmat import check_cross
@@ -377,6 +376,11 @@ def _check_splitn(tiers, heavy, ks):
     ):
         raise ValueError("tiers and heavy block must share one device")
     return gs, has_heavy, device
+
+
+def _check_aligned(tiers) -> None:
+    if any(t.data_ptr() % 16 for t in tiers):
+        raise ValueError("tier slots must start on a 16-byte boundary")
 
 
 def _check_tall(tall: torch.Tensor, k: int) -> int:
@@ -488,22 +492,24 @@ def masked_ell_depth_tall(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(depth, uniq) int32[G*SUB*TALL_W] in natural column order for one
     tall tier; ``k`` counts STORED words (two slots each under pack16).
-    CUDA: csrc/depth.cu pollen_ell_tier."""
+    The kernel reads the raw mask itself and loads four columns as one
+    16-byte word, so the tier must start on a 16-byte boundary.
+    CUDA: csrc/depth.cu pollen_ell_tier (one launch)."""
     g = _check_tall(tall, k)
+    _check_aligned([tall])
     if tall.device.type == "cpu":
         return masked_ell_depth_tall_plain(tall, mask, k, pack16)
     if tall.device.type != "cuda":
         raise ValueError(f"no kernel for device {tall.device}")
-    mask, elem, n_paths, n_words = kernel_mask(mask, tall.device)
+    mask, elem, n_paths, _ = kernel_mask(mask, tall.device)
     n = g * SUB * TALL_W
-    depth, uniq, words = alloc_outputs([n, n], n_words, tall.device)
+    depth, uniq, _ = alloc_outputs([n, n], 0, tall.device)
     lib = _build.load()
     _build.check(
         "pollen_ell_tier",
         lib.pollen_ell_tier(
             tall.data_ptr(), k, g, SUB, int(pack16), mask.data_ptr(), elem,
-            n_paths, words.data_ptr(), n_words, depth.data_ptr(),
-            uniq.data_ptr(), _stream(tall.device),
+            n_paths, depth.data_ptr(), uniq.data_ptr(), _stream(tall.device),
         ),
     )
     launches["ell_tier"] += 1

@@ -9,7 +9,7 @@ card: the port of the TPU probe ``probes/crossmat_variants.py``.
 
 Each variant's depth and uniq are checked against v0's (``depth_ok``,
 ``uniq_ok``) and timed by replaying a CUDA graph of back-to-back calls
-(``timing.replay_us``). A tile is a CUDA block's 128 columns. Run on
+(``timing.replay_us``). A tile is one v2 flag's 512 columns. Run on
 the card:
 
     python -m pollen_tpu_torch.probes.crossmat_variants v0 v1 v2 v2z

@@ -1,5 +1,5 @@
-"""K1, K2, K4, K5 and K8 side by side across builds, on the card, at the
-shapes of ``chip_smoke.py``'s rows:
+"""K1-K5, K8 and the probe ladder K10-K12 side by side across builds, on
+the card, at the shapes of ``chip_smoke.py``'s rows:
 
     K1  the fused split ELL query (tiers and heavy block in one call) at
         bench (one pack16 tier of k = 2, a 64 x 16,384 heavy block) and
@@ -7,12 +7,18 @@ shapes of ``chip_smoke.py``'s rows:
     K2  the unfused graph's heavy block (64 x 5376, in L2) under a seeded
         mask, and chr8_third's crossing matrix (64 x 4,194,304, 256 MiB)
         under the mask of every path it has;
+    K3  the unfused graph's tier (one tall tier, g = 2), pack16 and, from
+        a second ingest with POLLEN_ELL_PACK16=0, 32-bit slots, under a
+        seeded mask; and each of chr8_third's three pack16 tiers alone;
     K4  the batched split ELL query on bench's and chr8_third's index,
         Q = 32 seeded masks;
     K5  the batched crossing-matrix query on bench's matrix (64 x
         262,144), the same Q = 32 masks;
     K8  bench_runs' run index (524,288 runs) and wide_p2e17's
-        (12,795,904), under seeded masks.
+        (12,795,904), under seeded masks;
+    K10-K12  the ladder's four rungs (raw, vd, v1, v2 with tile_flags) on
+        K2's two matrices under K2's masks, beside K2's row, and v1 under
+        a mask that selects no row (what a call costs with no row read).
 
 Each build is a copy of a ``pollen_tpu_torch`` package built and timed by
 its own process, in the order given: ``shipped`` (this package as it
@@ -33,10 +39,13 @@ block, such as a mask-packing launch), so the same launch code times
 each part of the call; ``split_nobits`` and ``split_nostore`` patch
 K4's kernel (no mask bits in its heavy blocks; no stores from its tier
 blocks) to time what is left. Only the K1 and K4 rows run, unchecked.
-K5 also runs on the heavy block K4's tiles read. Run on the card:
+K5 also runs on the heavy block K4's tiles read. ``k3_splitn`` runs K3
+as a tier-only launch of K1's kernel (its ~40 KB of shared memory for
+the heavy tiles' list and sums) instead of its own lean kernel (8 KB of
+mask bits). Run on the card:
 
-    python -m pollen_tpu_torch.probes.kernel_ab shipped split_tiers \\
-        split_heavy split_pack pkg=OLD split_heavy@OLD
+    python -m pollen_tpu_torch.probes.kernel_ab pkg=OLD shipped shipped \\
+        pkg=OLD k3_splitn split_tiers split_heavy split_pack split_heavy@OLD
 
 The graphs are made once (seeded, ``synth.py``) and kept in
 ``_build/kernel_ab_shapes.pt`` beside the kernel library.
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import os
 import pathlib
 import shutil
 import statistics
@@ -76,10 +86,16 @@ def _split(tiers: str, heavy: str) -> dict:
 # Patched copies: {file under the package: {text found once: new text}}.
 VARIANTS = {
     "shipped": {},
-    # K2 without row groups: at small matrices each thread walks every
-    # selected row of its 16 columns (fewer, longer threads).
-    "k2groups1": {"csrc/depth.cu": {
+    # K2's tile without row groups (K2, K1's heavy tiles and the probe
+    # ladder): at small matrices each thread walks every selected row of
+    # its 16 columns (fewer, longer threads).
+    "k2groups1": {"csrc/cross.cuh": {
         "  while (groups < H_GROUPS &&": "  while (groups < 1 &&",
+    }},
+    # K3 as a tier-only launch of K1's kernel.
+    "k3_splitn": {"csrc/depth.cu": {
+        "launch_splitn<true, false>(x, st);":
+        "launch_splitn<true, true>(x, st);",
     }},
     "split_tiers": _split("tiers", "heavy[:, :0]"),
     "split_heavy": _split("[t[:0] for t in tiers]", "heavy"),
@@ -127,12 +143,20 @@ def make_shapes(path: pathlib.Path) -> None:
     from pollen_tpu_torch.synth import synth_graph
 
     unfused = build_graph(synth_graph(2**20, 2**17, 128), "cpu")
+    os.environ["POLLEN_ELL_PACK16"] = "0"
+    try:
+        unfused32 = build_graph(synth_graph(2**20, 2**17, 128), "cpu")
+    finally:
+        del os.environ["POLLEN_ELL_PACK16"]
     bench = build_graph(synth_graph(2**22, 2**18, 128), "cpu",
                         cross_matrix="always")
     chr8 = build_graph(synth_graph(2**25, 2**22, 96), "cpu",
                        cross_matrix="always")
     data = {
         "unfused": (unfused.ell_heavy, unfused.num_paths),
+        "tier pack16": (unfused.cross_ell, unfused.ell_k, unfused.num_paths),
+        "tier 32-bit": (unfused32.cross_ell, unfused32.ell_k,
+                        unfused32.num_paths),
         "chr8_third": (chr8.cross_matrix, chr8.num_paths),
         "bench_cross": (bench.cross_matrix, bench.num_paths),
         "ell bench": _ell_index(bench),
@@ -154,6 +178,7 @@ def measure(label: str, path: pathlib.Path) -> None:
 
     from pollen_tpu_torch.kernels import _build
     from pollen_tpu_torch.kernels import crossmat as cm
+    from pollen_tpu_torch.kernels import crossprobe as cp
     from pollen_tpu_torch.kernels import ellscan as ell
     from pollen_tpu_torch.kernels import runscan
     from pollen_tpu_torch.probes.timing import replay_us
@@ -210,6 +235,24 @@ def measure(label: str, path: pathlib.Path) -> None:
     exact(fn(), cm.batched_cross_depth_plain(a, cm.pad_mask(ms, 2 * a.shape[0]),
                                              nibble=True), "K5 bench_cross")
     out.append(f"K5 bench_cross Q=32 {med(fn):.2f}")
+    for name in ("pack16", "32-bit"):
+        tall, k, n_paths = data[f"tier {name}"]
+        tall, p16 = tall.cuda(), name == "pack16"
+        m = (torch.rand(n_paths, generator=gen) < 0.5).cuda()
+        fn = functools.partial(ell.masked_ell_depth_tall, tall, m, k, p16)
+        exact(fn(), ell.masked_ell_depth_tall_plain(tall, m, k, p16),
+              f"K3 unfused {name}")
+        out.append(f"K3 unfused {name} k={k} {med(fn):.2f}")
+    e = data["ell chr8_third"]  # K3 on each of chr8_third's three tiers
+    m = (torch.rand(e["num_paths"], generator=gen) < 0.5).cuda()
+    for tall, k in zip(e["tiers"], e["ks"]):
+        tall = tall.cuda()
+        fn = functools.partial(ell.masked_ell_depth_tall, tall, m, k,
+                               e["pack16"])
+        exact(fn(), ell.masked_ell_depth_tall_plain(tall, m, k, e["pack16"]),
+              f"K3 chr8_third k={k}")
+        out.append(f"K3 chr8_third tier {tuple(tall.shape)} k={k} "
+                   f"{med(fn):.2f}")
     for name in ("unfused", "chr8_third"):
         a, n_paths = data[name]
         a = a.cuda()
@@ -228,6 +271,23 @@ def measure(label: str, path: pathlib.Path) -> None:
                    f"{med(lambda: torch.matmul(fm, lib)):.2f})")
         del lib
         torch.cuda.empty_cache()
+        flags = cp.tile_flags(a, cp.TILE)
+        rungs = []
+        for mode in cp.MODES:
+            extra = (flags,) if mode == "v2" else ()
+            fn = functools.partial(getattr(cp, f"cross_probe_{mode}"), a, m,
+                                   *extra)
+            exact(fn(), cp.cross_probe_plain(a, m, mode, *extra),
+                  f"{mode} {name}")
+            rungs.append(f"{mode} {med(fn):.2f}")
+        # v1 under a mask that selects no row: the launch, the list
+        # staging and the stores, with no row read.
+        none = torch.zeros_like(m)
+        fn = functools.partial(cp.cross_probe_v1, a, none)
+        exact(fn(), cp.cross_probe_plain(a, none, "v1"), f"v1 {name}, no rows")
+        rungs.append(f"v1-no-rows {med(fn):.2f}")
+        out.append(f"ladder {name} ({int(flags.sum())}/{flags.numel()} tiles "
+                   f"flagged) {' '.join(rungs)}")
     for name in ("bench_runs", "wide_p2e17"):
         rp, rc, n_paths = data[name]
         rp, rc = rp.cuda(), rc.cuda()

@@ -156,6 +156,40 @@ def test_ell_tall_wrapper_matches_pallas_interpret():
     assert np.array_equal(np.asarray(u_r), u_p.numpy())
 
 
+@pytest.mark.parametrize("pack16", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 17])
+def test_ell_tall_wrapper_matches_reference_at_k(k, pack16):
+    """The tall wrapper (CPU path: its plain version) at stored-word
+    counts across the kernel's chunks of 1, 2, 4 and 8 words, on three
+    row groups: 32-bit tiers against the reference's
+    masked_ell_depth_tall, pack16 tiers against its
+    masked_ell_splitn_depth with no heavy class (its tall kernel has no
+    pack16 body, and its query routes a pack16 tier there), both in
+    interpret mode."""
+    rng = np.random.default_rng(100 + k)
+    p = 200 if pack16 else 300
+    n_cols = 3 * port.SUB * port.TALL_W - 100
+    tall, kw = _tall_tier(rng, 2 * k if pack16 else k, n_cols, p, pack16)
+    assert kw == k and tall.shape == (3 * k * port.SUB, port.TALL_W)
+    mask = rng.integers(0, 2, p).astype(np.int32)
+    if pack16:
+        want = ref.masked_ell_splitn_depth(
+            (jnp.asarray(tall),), jnp.zeros((0, 0), jnp.uint8),
+            jnp.asarray(mask), ks=(k,), interpret=True, pack16=True,
+        )
+    else:
+        want = ref.masked_ell_depth_tall(
+            jnp.asarray(tall), jnp.asarray(mask), k=k, interpret=True
+        )
+    got = port.masked_ell_depth_tall(
+        torch.from_numpy(tall), torch.from_numpy(mask), k, pack16
+    )
+    assert len(want) == len(got) == 2
+    for a, b in zip(want, got):
+        assert b.dtype == torch.int32
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
 def test_ell_splitn_wrapper_matches_pallas_interpret():
     """pack16 tiers plus a nibble heavy block, one fused call."""
     rng = np.random.default_rng(12)
@@ -363,6 +397,16 @@ def test_splitn_refuses_misaligned_tiers():
         port.masked_ell_splitn_depth_batch(
             [tall], empty, torch.ones((2, 8)), ks=[1]
         )
+
+
+def test_tall_refuses_misaligned_tier():
+    """The tall kernel loads four columns as one 16-byte word too: the
+    wrapper raises on any device rather than take the plain version."""
+    n = port.SUB * port.TALL_W
+    tall = torch.zeros(n + 1, dtype=torch.int32)[1:].view(port.SUB, port.TALL_W)
+    assert tall.is_contiguous() and tall.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        port.masked_ell_depth_tall(tall, torch.ones(8), 1)
 
 
 def test_splitn_heavy_block_alone():

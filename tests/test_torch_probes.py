@@ -29,6 +29,7 @@ from pollen_tpu_torch.probes import crossmat_floor, crossmat_variants
 torch.set_num_threads(1)
 
 P, N = 128, 16384  # the reference's tile there: pick_seg_block -> 8192
+COMPLEX_W = 128  # columns of a "complex" tile of _matrix
 
 
 def _load_probe(name):
@@ -62,8 +63,8 @@ def _matrix(seed, complex_tiles=()):
     hi = rng.random((P // 2, N)) < 0.3
     a = (lo | (hi.astype(np.uint8) << 4)).astype(np.uint8)
     for t in complex_tiles:
-        cols = slice(t * port.TILE, (t + 1) * port.TILE)
-        a[:, cols] = rng.integers(0, 256, (P // 2, port.TILE))
+        cols = slice(t * COMPLEX_W, (t + 1) * COMPLEX_W)
+        a[:, cols] = rng.integers(0, 256, (P // 2, COMPLEX_W))
     return a
 
 
@@ -88,7 +89,7 @@ def _interpret(fn, *args):
 def test_floor_kernels_match_reference(ref_floor, mode, seed):
     """K10: the port's raw and vd wrappers (CPU path: their plain
     versions) against _make(_kernel_raw) and _make(_kernel_vd)."""
-    a = _matrix(seed, complex_tiles=range(0, N // port.TILE, 3))
+    a = _matrix(seed, complex_tiles=range(0, N // COMPLEX_W, 3))
     m = _mask(seed)
     kernel = {"raw": ref_floor._kernel_raw, "vd": ref_floor._kernel_vd}[mode]
     want = _interpret(ref_floor._make(kernel), a, m)
@@ -113,8 +114,9 @@ def test_v1_matches_reference(ref_variants, seed):
 @pytest.mark.parametrize("flags", ["ones", "zeros", "tile_flags"])
 def test_v2_matches_reference(ref_variants, flags):
     """K12 against cross_depth_v2. The reference's flags are per 8192
-    columns and the port's per 128 (a CUDA block): all ones and correct
-    flags give v1's answer in both, all zeros give depth as uniq."""
+    columns and the port's per 512 (a warp's span of the dense query's
+    tile): all ones and correct flags give v1's answer in both, all
+    zeros give depth as uniq."""
     a = _matrix(9, complex_tiles=(3, 64, 65))
     m = _mask(9)
     width = ref_cm.pick_seg_block(P, N)
@@ -141,13 +143,13 @@ def test_v2_matches_reference(ref_variants, flags):
 def test_v2_plain_matches_reference_on_any_flags(ref_variants):
     """The plain v2 at the reference's own tile width, on flags that
     are wrong for some tiles: the same answer tile by tile."""
-    a = _matrix(12, complex_tiles=range(0, N // port.TILE, 5))
+    a = _matrix(12, complex_tiles=range(0, N // COMPLEX_W, 5))
     m = _mask(12)
     width = ref_cm.pick_seg_block(P, N)
     flags = np.array([1, 0], np.int32)[: N // width]
     want = _interpret(ref_variants.cross_depth_v2, a, m, flags)
     got = port.cross_probe_plain(torch.from_numpy(a), torch.from_numpy(m), "v2",
-                                 torch.from_numpy(flags))
+                                 torch.from_numpy(flags), width=width)
     _equal(want, got)
 
 
@@ -161,7 +163,47 @@ def test_tile_flags_match_reference(ref_variants, complex_tiles):
         got = port.tile_flags(torch.from_numpy(a), w)
         assert got.dtype == torch.int32 and np.array_equal(want, got.numpy())
     got = port.tile_flags(torch.from_numpy(a), port.TILE).numpy()
-    assert np.array_equal(np.flatnonzero(got), sorted(complex_tiles))
+    want = sorted({t * COMPLEX_W // port.TILE for t in complex_tiles})
+    assert np.array_equal(np.flatnonzero(got), want)
+
+
+@pytest.mark.parametrize("flags", ["tile_flags", "alternate"])
+@pytest.mark.parametrize("n", [640, 1152])
+def test_ragged_last_tile_matches_reference(ref_variants, n, flags):
+    """Columns a multiple of 128 and not of the port's 512-column tile:
+    its last tile is narrower. tile_flags against the reference's on the
+    matrix zero-padded to whole tiles (padding holds no count); v2
+    against cross_depth_v2 at the reference's own tile (128 here), each
+    of its flags the port's flag of the 512 columns around it."""
+    rng = np.random.default_rng(n)
+    a = ((rng.random((P // 2, n)) < 0.3)
+         | ((rng.random((P // 2, n)) < 0.3).astype(np.uint8) << 4))
+    a = a.astype(np.uint8)
+    a[:, -128:] = rng.integers(0, 256, (P // 2, 128))  # the ragged tile
+    a[:, 128:256] = rng.integers(0, 256, (P // 2, 128))
+    tiles = port.n_tiles(n)
+    assert tiles * port.TILE > n
+    padded = np.zeros((P // 2, tiles * port.TILE), np.uint8)
+    padded[:, :n] = a
+    want = ref_variants.tile_flags(
+        types.SimpleNamespace(cross_matrix=jnp.asarray(padded)), port.TILE)
+    got = port.tile_flags(torch.from_numpy(a))
+    assert got.dtype == torch.int32 and np.array_equal(want, got.numpy())
+    assert got[-1] == 1
+    f = got if flags == "tile_flags" else torch.arange(tiles, dtype=torch.int32) % 2
+    width = ref_cm.pick_seg_block(P, n)
+    assert port.TILE % width == 0
+    ref_flags = np.repeat(f.numpy(), port.TILE // width)[: n // width]
+    m = _mask(n)
+    want = _interpret(ref_variants.cross_depth_v2, a, m, ref_flags)
+    got = port.cross_probe_v2(torch.from_numpy(a), torch.from_numpy(m), f)
+    assert len(got) == 2
+    for x, y in zip(want, got):
+        assert y.dtype == torch.int32 and y.shape == (n,)
+        assert np.array_equal(np.asarray(x), y.numpy())
+    plain = port.cross_probe_plain(torch.from_numpy(a), torch.from_numpy(m),
+                                   "v2", f)
+    assert all(torch.equal(x, y) for x, y in zip(plain, got))
 
 
 @pytest.mark.parametrize("name", FIXTURE_GRAPHS)
@@ -193,9 +235,9 @@ def test_ladder_on_reference_matrices(name):
 def test_probe_wrappers_check_inputs():
     a = torch.zeros((64, 256), dtype=torch.uint8)
     m = torch.ones(128, dtype=torch.int32)
-    with pytest.raises(ValueError, match="one per 128"):
-        port.cross_probe_v2(a, m, torch.ones(1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="one per 128"):
+    with pytest.raises(ValueError, match=f"one per {port.TILE}"):
+        port.cross_probe_v2(a, m, torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match=f"one per {port.TILE}"):
         port.cross_probe_v2(a, m, None)
     with pytest.raises(TypeError):
         port.cross_probe_v1(a.to(torch.int8), m)
@@ -224,6 +266,6 @@ def test_probe_scripts_run_on_cpu(script, monkeypatch, capsys):
         assert ("exact=True" in line if script == "floor"
                 else "depth_ok=True" in line)
     if script == "variants":
-        assert "complex tiles (width 128)" in out
+        assert f"complex tiles (width {port.TILE})" in out
     with pytest.raises(SystemExit):
         mod.main(["--device", "cpu", "nope"])
