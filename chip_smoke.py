@@ -70,6 +70,29 @@ against K3 on the same slots (flat against tall), and the probe ladder
 at both matrices and at the unfused heavy block, each rung's bound
 counting only the byte rows its mask selects.
 
+The graph commands beyond depth have no kernel of their own (plain
+torch on the card). Phase 2 runs each through ``fgfa-torch --device
+cuda`` on the 8 fixtures: ``degree``, ``flatten``, ``overlap``,
+``validate`` (and on ``*.validate_setup``), ``matrix-adj``, ``paths``,
+``norm``, ``crush``, ``flip``, ``chop -c 3`` and the GFA round trip
+byte for byte against the goldens; ``depth -b``, ``window-depth``,
+``bed-depth``, ``position``, ``stats``, ``toc`` and ``-O`` against
+the port's ``--device cpu`` answer; ``-o`` against
+``tiny.flatgfa.hex``; and one ``serve`` stream mixing them with depth
+requests. A scale phase adds links to chr8_third (the unique adjacent
+handle pairs of its paths, a seeded 1 in 10^4 dropped), holds each
+device op (``seg_degree``, ``step_intervals``, ``_unsupported_pairs``,
+``positions_in_path`` at 4,096 offsets, ``_touch_matrix``,
+``_reverse_heavy_paths``, ``interval_depth`` at 1,000 bp windows) on
+cuda against the same function on a CPU copy and a numpy formula,
+exact, and times each (CUDA-event wall, CUDA-graph replay where the op
+allows capture, profiler busy time, idle share, byte bound); then times
+CLI runs end to end over ``-i chr8.flatgfa`` (written by ``-o``):
+``degree``, ``validate``, ``position``, ``window-depth``, ``overlap``;
+``flip`` and ``flatten`` at bench with links, where their text takes
+seconds. Its rows are the ``{"device_ops": [...]}`` line, printed
+before the kernels' line.
+
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
 batch: phase 2's ``-S`` requests and phase 3's batches; the scan
@@ -2301,6 +2324,413 @@ def time_cross_chr8(probes: dict, errs: Errors, card: str, rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The graph commands beyond depth and the writer. Their device ops have no
+# TPU kernel and no CUDA kernel of their own: plain torch on the card.
+# ---------------------------------------------------------------------------
+
+# The graph of tests/golden/tiny.flatgfa.hex (tests/test_golden_binary.py).
+HEX_GFA = "S\t1\tAC\nS\t2\tG\nP\tp\t1+,2-\t*\nL\t1\t+\t2\t+\t2M\n"
+# (arguments after -I, golden extension)
+GOLDEN_COMMANDS = (
+    (("degree",), "degree"),
+    (("flatten",), "flatten"),
+    (("validate",), "validate"),
+    (("matrix-adj",), "matrix"),
+    (("paths",), "paths"),
+    (("norm",), "norm"),
+    (("crush",), "crush"),
+    (("flip",), "flip"),
+    (("chop", "-c", "3"), "chop"),
+)
+
+
+def cpu_checked_commands(stem: str) -> list:
+    """Commands with no golden: on cuda they must print the port's
+    ``--device cpu`` answer."""
+    golden = REPO / "tests" / "golden"
+    bed = str(golden / f"{stem}.bed")
+    p0 = (golden / f"{stem}.paths").read_text().split()[0]
+    return [
+        ["depth", "-b", bed], ["window-depth", p0, "7"],
+        ["bed-depth", "-b", bed], ["position", "-p", f"{p0},3,+"],
+        ["position", "-p", f"{p0},100000,+"], ["stats"], ["stats", "-L"],
+        ["toc"], ["toc", "-b"],
+    ]
+
+
+def phase_goldens_commands(tmp: pathlib.Path):
+    """Phase 2 (graph commands): every command beyond depth through
+    ``fgfa-torch --device cuda`` on the 8 fixtures, against the goldens
+    or the port's ``--device cpu`` answer; ``-o``, ``-O``, the GFA round
+    trip, and one serve stream of them mixed with depth requests."""
+    import contextlib
+
+    golden = REPO / "tests" / "golden"
+    n_runs = 0
+    # Flatten's FASTA name is the input path: the goldens were made with
+    # tests/graphs/<stem>.og, so the fixtures are named from the root.
+    with contextlib.chdir(REPO):
+        for path in sorted((REPO / "tests" / "graphs").glob("*.gfa")):
+            stem = path.stem
+            rel = f"tests/graphs/{path.name}"
+            all_paths = tmp / f"{stem}.allpaths"
+            all_paths.write_text((golden / f"{stem}.paths").read_text())
+            broken = tmp / f"{stem}.broken.gfa"
+            broken.write_text((golden / f"{stem}.validate_setup").read_text())
+            checks = [(["-I", rel, *argv], golden / f"{stem}.{ext}")
+                      for argv, ext in GOLDEN_COMMANDS]
+            checks += [
+                (["-I", rel, "overlap", "--paths", str(all_paths)],
+                 golden / f"{stem}.overlap"),
+                (["-I", str(broken), "validate"],
+                 golden / f"{stem}.validate_broken"),
+                (["-I", rel], path),
+            ]
+            for argv, want in checks:
+                got = run_cli(["--device", "cuda", *argv])
+                need(got == want.read_text(),
+                     f"{' '.join(argv)} differs from {want.name} on cuda")
+            for argv in cpu_checked_commands(stem):
+                got = run_cli(["--device", "cuda", "-I", rel, *argv])
+                want = run_cli(["--device", "cpu", "-I", rel, *argv])
+                need(got == want, f"{' '.join(argv)} on {path.name}: cuda "
+                     "differs from cpu")
+            outs = []
+            for device in ("cuda", "cpu"):
+                out = tmp / f"{stem}.{device}.gfa"
+                run_cli(["--device", device, "-I", rel, "-O", str(out)])
+                outs.append(out.read_text())
+            need(outs[0] == outs[1] == path.read_text(),
+                 f"-O on {path.name}: cuda, cpu and the input differ")
+            n_runs += len(checks) + 2 * len(cpu_checked_commands(stem)) + 2
+    tiny = tmp / "tiny.gfa"
+    tiny.write_text(HEX_GFA)
+    run_cli(["--device", "cuda", "-I", str(tiny), "-o",
+             str(tmp / "tiny.flatgfa")])
+    want = bytes.fromhex((golden / "tiny.flatgfa.hex").read_text().strip())
+    need((tmp / "tiny.flatgfa").read_bytes() == want,
+         "-o differs from tiny.flatgfa.hex")
+
+    rand1 = REPO / "tests" / "graphs" / "rand1.gfa"
+    all_paths = tmp / "rand1.allpaths"
+    requests = [
+        "degree", "depth -d", f"overlap --paths {all_paths}", "validate",
+        f"depth -d -s {golden / 'rand1.depthpaths'}", "flatten",
+        *(" ".join(argv) for argv in cpu_checked_commands("rand1")),
+        "matrix-adj", "flip", "depth -d", "chop -c 3", "crush", "norm",
+        f"-o {tmp / 'served.flatgfa'} depth -d", "paths",
+    ]
+    text = {}
+    for device in ("cuda", "cpu"):
+        text[device] = run_cli(["--device", device, "-I", str(rand1),
+                                "serve"], "\n".join(requests) + "\n")
+    frames = [ln for ln in text["cuda"].splitlines() if ln.startswith("##end")]
+    need(frames == ["##end\tok"] * len(requests), f"serve frames: {frames}")
+    need(text["cuda"] == text["cpu"], "serve on cuda differs from cpu")
+    need(text["cuda"].startswith((golden / "rand1.degree").read_text()
+                                 + "##end\tok\n"
+                                 + (golden / "rand1.depth").read_text()),
+         "serve's degree / depth answers differ from the goldens")
+    run_cli(["--device", "cuda", "-I", str(rand1), "-o",
+             str(tmp / "rand1.flatgfa")])
+    need((tmp / "served.flatgfa").read_bytes()
+         == (tmp / "rand1.flatgfa").read_bytes(), "served -o differs")
+    print(f"phase 2 (graph commands): {n_runs} CLI runs on cuda for 8 "
+          "fixtures: degree, flatten, overlap, validate (both goldens), "
+          "matrix-adj, paths, norm, crush, flip, chop -c 3 and the GFA "
+          "round trip byte-identical to the goldens; depth -b, window-depth, "
+          "bed-depth, position, stats, toc and -O equal to --device cpu; -o "
+          f"equals tiny.flatgfa.hex; serve answered {len(requests)} mixed "
+          "requests ##end ok, equal to cpu", flush=True)
+
+
+def add_path_links(g, seed=8):
+    """``g`` with links: the unique adjacent handle pairs of every path,
+    a seeded 1 in 10^4 of them dropped (so that validate has errors to
+    report). Returns (graph, links kept, links dropped)."""
+    import dataclasses
+
+    import numpy as np
+
+    sp = g.step_path_ids()
+    same = sp[:-1] == sp[1:]
+    a = g.steps[:-1][same].astype(np.uint64)
+    b = g.steps[1:][same].astype(np.uint64)
+    keys = np.unique((a << np.uint64(32)) | b)
+    keep = np.random.default_rng(seed).random(keys.shape[0]) >= 1e-4
+    kept = keys[keep]
+    linked = dataclasses.replace(
+        g,
+        link_from=(kept >> np.uint64(32)).astype(np.uint32),
+        link_to=(kept & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+        link_overlap=np.zeros((kept.shape[0], 2), np.uint32),
+    )
+    return linked, int(kept.shape[0]), int((~keep).sum())
+
+
+def numpy_graph_ops(g, pid: int, offsets, windows: int) -> dict:
+    """Each device op of the graph commands as a numpy formula over the
+    arena, independent of the port's code."""
+    import numpy as np
+
+    n, p = g.num_segments, g.num_paths
+    steps = g.steps.astype(np.int64)
+    seg = steps >> 1
+    lens_seg = g.seg_len.astype(np.int64)
+    out = {}
+    out["seg_degree"] = np.bincount(
+        np.concatenate([g.link_from >> 1, g.link_to >> 1]).astype(np.int64),
+        minlength=n,
+    )
+    ends = np.cumsum(lens_seg)
+    out["step_intervals"] = ((ends - lens_seg)[seg], ends[seg])
+
+    keys = np.sort((g.link_from.astype(np.uint64) << np.uint64(32))
+                   | g.link_to.astype(np.uint64))
+
+    def member(k):
+        idx = np.minimum(np.searchsorted(keys, k), keys.shape[0] - 1)
+        return keys[idx] == k
+
+    a, b = g.steps[:-1].astype(np.uint64), g.steps[1:].astype(np.uint64)
+    sp = g.step_path_ids()
+    one = np.uint64(1)
+    out["_unsupported_pairs"] = (sp[:-1] == sp[1:]) & ~(
+        member((a << np.uint64(32)) | b)
+        | member(((b ^ one) << np.uint64(32)) | (a ^ one))
+    )
+
+    lo, hi = (int(x) for x in g.path_steps[pid])
+    lens = lens_seg[seg[lo:hi]]
+    cum = np.cumsum(lens)
+    idx = np.minimum(np.searchsorted(cum, offsets, side="right"), hi - lo - 1)
+    out["positions_in_path"] = (
+        steps[lo + idx], offsets - (cum[idx] - lens[idx]),
+        offsets < cum[-1],
+    )
+
+    shared = np.zeros((p, p), np.float32)
+    chunk = 1 << 20
+    for c0 in range(0, 2 * n, chunk):
+        sel = (steps >= c0) & (steps < c0 + chunk)
+        inc = np.zeros((p, min(chunk, 2 * n - c0)), np.float32)
+        inc[sp[sel], steps[sel] - c0] = 1
+        shared += inc @ inc.T
+    out["_touch_matrix"] = (shared > 0) & ~np.eye(p, dtype=bool)
+
+    bounds = g.path_steps.astype(np.int64)
+    rev = (steps & 1).astype(bool)
+    step_bp = lens_seg[seg]
+    csum = np.concatenate(([0], np.cumsum(np.where(rev, step_bp, 0))))
+    fsum = np.concatenate(([0], np.cumsum(np.where(rev, 0, step_bp))))
+    out["_reverse_heavy_paths"] = (
+        (csum[bounds[:, 1]] - csum[bounds[:, 0]])
+        > (fsum[bounds[:, 1]] - fsum[bounds[:, 0]])
+    )
+
+    # Window depth as odgi's sweep, step by step, one window at a time:
+    # the bp-weighted segment depth over each window, accumulated in the
+    # reference's float64 order.
+    depth = np.bincount(seg, minlength=n).astype(np.float64)
+    total = int(cum[-1])
+    w_lo = list(range(0, total, windows))
+    acc = [0.0] * len(w_lo)
+    start = 0
+    for s_seg, s_len in zip(seg[lo:hi].tolist(), lens.tolist()):
+        end = start + s_len
+        for w in range(start // windows, min((end - 1) // windows + 1,
+                                              len(w_lo))):
+            wl, wh = w_lo[w], min(w_lo[w] + windows, total)
+            ov = min(end, wh) - max(start, wl)
+            if ov > 0:
+                acc[w] += (depth[s_seg] * s_len * (ov / s_len)) / (wh - wl)
+        start = end
+    out["interval_depth"] = np.array(acc, dtype=np.float64)
+    return out
+
+
+GRAPH_OP_REFS = {
+    "seg_degree": "pollen_tpu/ops/degree.py:20",
+    "step_intervals": "pollen_tpu/ops/flatten.py:23",
+    "_unsupported_pairs": "pollen_tpu/ops/validate.py:30",
+    "positions_in_path": "pollen_tpu/ops/position.py:22",
+    "_touch_matrix": "pollen_tpu/ops/overlap.py:31",
+    "_reverse_heavy_paths": "pollen_tpu/ops/transform.py:86",
+    "interval_depth": "pollen_tpu/ops/window_depth.py:26",
+}
+
+
+def max_err(got, want) -> float:
+    import numpy as np
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    need(len(got) == len(want), "output counts differ")
+    worst = 0.0
+    for x, y in zip(got, want):
+        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        y = y.cpu().numpy() if hasattr(y, "cpu") else np.asarray(y)
+        need(x.shape == y.shape, f"shapes {x.shape} and {y.shape} differ")
+        if x.size:
+            diff = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            worst = max(worst, float(diff.max()))
+            need(np.array_equal(x, y), f"max |err| {float(diff.max())}")
+    return worst
+
+
+def phase_graph_ops(graphs: dict, card: str) -> list:
+    """Phase 3 (graph commands) at chr8_third with links: each device
+    op on cuda against the same function on a CPU copy and a numpy
+    formula, exact; then its CUDA-event wall, CUDA-graph device time
+    (where the op is graph-safe), profiler busy time, idle share and
+    byte bound; then CLI runs end to end over ``-i chr8.flatgfa``
+    (written by the port's ``-o``)."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.bed import windows_bed
+    from pollen_tpu_torch.fileformat import save_flatgfa
+    from pollen_tpu_torch.ops import degree, flatten, overlap, position
+    from pollen_tpu_torch.ops import transform, validate, window_depth
+    from pollen_tpu_torch.probes.timing import replay_us
+
+    g, linked, dropped = add_path_links(graphs["chr8_third"][0])
+    t0 = time.perf_counter()
+    dg = build_graph(g, "cuda", cross_matrix="never")
+    torch.cuda.synchronize()
+    print(f"chr8_third with links: {linked} links ({dropped} dropped); "
+          f"ingest {time.perf_counter() - t0:.3f} s", flush=True)
+    dg_cpu = dg.to("cpu")
+    s, n, p = g.num_steps, g.num_segments, g.num_paths
+    rng = np.random.default_rng(8)
+    pid = 5
+    lo, hi = (int(x) for x in g.path_steps[pid])
+    total = int(g.seg_len[(g.steps[lo:hi] >> 1).astype(np.int64)].sum())
+    offsets = np.sort(rng.integers(0, total + total // 8, 4096))
+    offsets[:3] = (total - 1, total, total + 1)
+    window = 1000
+    windows = windows_bed(f"p{pid}".encode(), 0, total, window)
+    want = numpy_graph_ops(g, pid, offsets, window)
+
+    def args_of(d):
+        steps = d.steps
+        return dict(
+            seg_degree=(d,),
+            step_intervals=(d,),
+            _unsupported_pairs=(
+                steps, torch.from_numpy(g.step_path_ids()).to(d.device),
+                torch.from_numpy(validate.link_keys(g)).to(d.device),
+            ),
+            positions_in_path=(d, pid, torch.from_numpy(offsets).to(d.device)),
+            _touch_matrix=(overlap._incidence(g, d),),
+            _reverse_heavy_paths=(d,),
+            interval_depth=(g, d, pid, windows),
+        )
+
+    fns = dict(
+        seg_degree=degree.seg_degree,
+        step_intervals=flatten.step_intervals,
+        _unsupported_pairs=validate._unsupported_pairs,
+        positions_in_path=position.positions_in_path,
+        _touch_matrix=overlap._touch_matrix,
+        _reverse_heavy_paths=transform._reverse_heavy_paths,
+        interval_depth=window_depth.interval_depth,
+    )
+    cuda_args, cpu_args = args_of(dg), args_of(dg_cpu)
+    idx_bytes = 8 * s + 4 * n  # steps (int64), seg_len
+    nbytes = dict(
+        seg_degree=4 * (n + 1) + 4 * n,
+        step_intervals=idx_bytes + 2 * 8 * s,
+        _unsupported_pairs=8 * s + 4 * s + 8 * g.num_links + (s - 1),
+        positions_in_path=idx_bytes + 4 * (p + 1) + 8 * 4096 + 17 * 4096,
+        _touch_matrix=p * 2 * n + p * p,
+        _reverse_heavy_paths=idx_bytes + 4 * (p + 1) + p,
+        interval_depth=4 * (n + 1) * 2 + 8 * n,
+    )
+    shapes = dict(
+        seg_degree=f"N={n}", step_intervals=f"S={s}",
+        _unsupported_pairs=f"S={s}, L={g.num_links}",
+        positions_in_path=f"S={s}, Q=4096 on p{pid} ({hi - lo} steps)",
+        _touch_matrix=f"incidence {p} x {2 * n}",
+        _reverse_heavy_paths=f"S={s}, P={p}",
+        interval_depth=f"p{pid}: {hi - lo} steps, "
+                       f"{windows.num_entries} windows of {window} bp",
+    )
+    rows = []
+    for name, fn in fns.items():
+        got = fn(*cuda_args[name])
+        outs = got if isinstance(got, tuple) else (got,)
+        if name != "interval_depth":
+            need(all(o.is_cuda for o in outs), f"{name}: not on the card")
+        err = max(max_err(got, fn(*cpu_args[name])), max_err(got, want[name]))
+        call = functools.partial(fn, *cuda_args[name])
+        wall_us = cuda_ms(call) * 1e3
+        graph_safe = name != "interval_depth"
+        dev_us = replay_us(call) if graph_safe else None
+        # No device events in the trace: busy time and idle share were
+        # not measured (not zero).
+        per = device_profile(call, reps=10)
+        busy = sum(per.values()) if per else None
+        idle = None if busy is None else 1 - busy / wall_us
+        bound_us = nbytes[name] / HBM_BPS * 1e6
+        rows.append(dict(
+            name=name, reference=GRAPH_OP_REFS[name], shape=shapes[name],
+            device_us=dev_us, wall_us=wall_us, bound_us=bound_us,
+            busy_us=busy, idle_share=idle, max_abs_err=err,
+        ))
+        dev = "not graph-safe" if dev_us is None else f"{dev_us:.2f} us device"
+        busy_text = (describe_profile(per) if busy is None else
+                     f"busy {busy:.2f} us, idle {idle:.3f}")
+        print(f"{name} at {shapes[name]} [{card}]: {wall_us:.2f} us wall, "
+              f"{dev}, {busy_text}; byte bound {bound_us:.2f} us; equal to "
+              "cpu and numpy", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        raw = tmp / "raw.flatgfa"
+        save_flatgfa(str(raw), g)
+        chr8 = tmp / "chr8.flatgfa"
+        run_cli(["--device", "cuda", "-i", str(raw), "-o", str(chr8)])
+        need(chr8.read_bytes() == raw.read_bytes(), "-o changed the graph")
+        raw.unlink()
+        (tmp / "paths.txt").write_text(
+            "\n".join(b.decode() for b in g.path_names()) + "\n")
+        bad = int(want["_unsupported_pairs"].sum())
+        e2e = {}
+        for argv, lines in (
+            (["degree"], n + 1),
+            (["validate"], bad),
+            (["position", "-p", f"p{pid},{total // 2},+"], 2),
+            (["window-depth", f"p{pid}", str(window)], windows.num_entries),
+            (["overlap", "--paths", str(tmp / "paths.txt")],
+             int(want["_touch_matrix"].sum()) + 1),
+        ):
+            t0 = time.perf_counter()
+            text = run_cli(["--device", "cuda", "-i", str(chr8), *argv])
+            e2e[argv[0]] = time.perf_counter() - t0
+            need(text.count("\n") == lines,
+                 f"{argv[0]} at chr8_third: {text.count(chr(10))} lines, "
+                 f"expected {lines}")
+    # flip and flatten render text per link and per step: timed at the
+    # bench graph (2^22 steps), where their text takes seconds.
+    gb, _, _ = add_path_links(graphs["bench"][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = pathlib.Path(tmp) / "bench.flatgfa"
+        save_flatgfa(str(bench), gb)
+        for argv in (["flip"], ["flatten"]):
+            t0 = time.perf_counter()
+            text = run_cli(["--device", "cuda", "-i", str(bench), *argv])
+            e2e[f"{argv[0]} (bench)"] = time.perf_counter() - t0
+            need(len(text) > gb.num_steps, f"{argv[0]} at bench: short text")
+    print(f"CLI end to end [{card}], seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in e2e.items())
+          + f" (chr8_third with links, -i chr8.flatgfa written by -o; flip "
+          f"and flatten at bench with links)", flush=True)
+    return rows
+
+
 def main() -> int:
     if not (REPO / "pollen_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -2360,6 +2790,8 @@ def main() -> int:
         scan = phase_scale_scan()
         scanned = launch_counts()
         stamp("scan-family main path done")
+        phase_goldens_commands(pathlib.Path(tmp))
+        stamp("graph commands on the fixtures done")
     reset_launches()
     flat = phase_flat_ell(graphs)
     flat_counts = launch_counts()
@@ -2389,12 +2821,16 @@ def main() -> int:
     timing.update(phase_flat_probe_timing(graphs, flat, probes, errs,
                                          card))
     stamp("flat-ELL and probe timing done")
+    device_ops = phase_graph_ops(graphs, card)
+    stamp("graph-command ops at scale done")
     rows = [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=launches[name], max_abs_err=errs.max[name],
              **timing[name])
         for name, (src, replaces, _) in KERNELS.items()
     ]
+    stamp("total")
+    print(json.dumps({"device_ops": device_ops}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
 """``fgfa-torch``: the command-line tool of the PyTorch / CUDA port.
 
 The grammar is the port's own copy of the reference CLI's
-(``pollen_tpu/cli.py`` ``build_parser``, ``_load``, ``_read_lines`` and
-``_needs_masked_index``), every flag and default kept, so that every
-command line means what it means to ``fgfa-tpu``; ``--device`` is added.
-Served so far: ``depth`` (path depth, ``-r``), ``depth -d``,
-``depth -d -s FILE``, ``depth -S FILE`` (one subset per line, all
-answered in one batched device pass) and ``serve``, which answers depth
-requests over one resident graph with the reference's framing
-(``##end\\tok`` or ``##end\\terror\\t<message>`` after each response).
-Every other command, and ``-o``/``-O`` output on any command or serve
-request, exits with "not ported yet".
+(``pollen_tpu/cli.py`` ``build_parser``, ``_load``, ``_store``,
+``_emit_transform``, ``_toc_text``, ``_read_lines`` and the command
+dispatch), every flag and default kept, so that every command line
+means what it means to ``fgfa-tpu``; ``--device`` is added. Served:
+the no-command conversion (``-I x.gfa -o y.flatgfa``, or the preserved
+GFA on stdout), ``paths``, ``norm``, ``toc``, ``stats``, ``depth`` (all
+forms: ``-d``, ``-s``, ``-S``, ``-r``, ``-b``), ``degree``,
+``matrix-adj``, ``flatten``, ``validate``, ``position``, ``overlap``,
+``window-depth``, ``bed-depth``, ``bed``, ``crush``, ``flip``,
+``chop`` and ``serve``, which answers any of them over one resident
+graph with the reference's framing (``##end\tok`` or
+``##end\terror\t<message>`` after each response). ``-o``, ``-O`` and
+``-m`` write what the reference writes. ``gaf``, ``matrix``,
+``pangenotype``, ``extract``, ``inject``, ``seq-export``,
+``seq-import`` and ``bench`` exit with "not ported yet".
 
 ``--device cuda|cpu`` (default ``cuda``) picks where the index lives and
 the queries run. A ``cuda`` run without a card is an error.
@@ -24,8 +29,8 @@ import sys
 from typing import List, Optional, TextIO
 
 from .device import build_graph, resolve_device
+from .emit import emit_gfa
 from .flatgfa import GraphArrays, parse_gfa, parse_gfa_file
-from .ops import depth as depth_op
 
 
 def _read_lines(filename: str) -> List[str]:
@@ -43,20 +48,46 @@ def _load(args: argparse.Namespace) -> GraphArrays:
     return parse_gfa(sys.stdin.buffer.read())
 
 
+def _store(args: argparse.Namespace, g: GraphArrays) -> bool:
+    """Write the graph per the output flags; True if something was written."""
+    if args.output:
+        from .fileformat import save_flatgfa
+
+        save_flatgfa(args.output, g, spare=args.prealloc_factor)
+        return True
+    if args.output_gfa:
+        from .emit import emit_gfa_to_file
+
+        emit_gfa_to_file(g, args.output_gfa)
+        return True
+    return False
+
+
+def _emit_transform(args, out, arena: GraphArrays, **emit_kw) -> None:
+    """Write a transform result: in place into the -i binary under -m,
+    otherwise as GFA text."""
+    if args.mutate and args.input:
+        from .fileformat import update_in_place
+
+        update_in_place(args.input, arena)
+    else:
+        out.write(emit_gfa(arena, **emit_kw))
+
+
 def _needs_masked_index(args) -> bool:
     """Only masked/batched subset-depth queries read the crossing
     matrix / tiered-ELL indexes; every other one-shot command skips
-    building them. The serve loop always builds the full set. As in the
-    reference, ``-S`` under ``-b`` still counts (the bed route never
-    reads the indexes; the answer is the same either way)."""
-    if args.command != "depth":
+    building them. The serve loop always builds the full set. ``-b``
+    answers before ``-S`` or ``-s`` is read and never reads the
+    indexes, so ``depth -b`` builds none, whatever else is given (the
+    reference still builds them for ``depth -b X -S Y``)."""
+    if args.command != "depth" or getattr(args, "bed_input", None):
         return False
     return bool(
         getattr(args, "subset_batch", None)
         or (
             getattr(args, "seg_depth", False)
             and getattr(args, "subset_paths", None)
-            and not getattr(args, "bed_input", None)
         )
     )
 
@@ -227,33 +258,31 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# Commands of the reference that the port does not answer yet, and the
+# ones that serve refuses (the reference's set).
+NOT_PORTED = frozenset(
+    ("gaf", "matrix", "pangenotype", "extract", "inject", "seq-export",
+     "seq-import", "bench")
+)
+NOT_SERVED = frozenset(("serve", "seq-export", "seq-import", "bench"))
+
+
 def _not_ported(what: str) -> ValueError:
     return ValueError(f"{what} is not ported yet (see ROADMAP.md)")
 
 
-def _refuse_output(args) -> None:
-    """``-o``/``-O`` name files the reference writes after the command
-    (its ``_store``); the port has no writer yet, so it refuses them
-    before it reads or answers anything."""
-    if args.output or args.output_gfa:
-        raise _not_ported("-o/-O output")
+def _toc_text(g: GraphArrays, in_bytes: bool) -> str:
+    from .fileformat import _POOL_ELEM, _pools_of
 
-
-def _run_depth(args, g, dg, out: TextIO) -> None:
-    # The reference's order: -b, then -S (with or without -d), then -d.
-    if args.bed_input:
-        raise _not_ported("depth -b")
-    if args.subset_batch:
-        subsets = [
-            [p for p in line.replace(",", " ").split() if p]
-            for line in _read_lines(args.subset_batch)
-        ]
-        out.write(depth_op.run_seg_depth_batch(g, dg, subsets))
-    elif args.seg_depth:
-        subset = _read_lines(args.subset_paths) if args.subset_paths else None
-        out.write(depth_op.run_seg_depth(g, dg, subset))
-    else:
-        out.write(depth_op.run_path_depth(g, dg, args.path or None))
+    pools = _pools_of(g)
+    lines = []
+    for name, arr in pools.items():
+        count = arr.shape[0]
+        if in_bytes:
+            count *= _POOL_ELEM[name].itemsize
+        label = "optional_data" if name == "optional_data" else name
+        lines.append(f"{label}: {count}")
+    return "\n".join(lines) + "\n"
 
 
 def main(
@@ -273,26 +302,51 @@ def main(
 def _main(argv, stdin: TextIO, out: TextIO) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_output(args)
-    if args.command not in ("depth", "serve"):
-        raise _not_ported(f"command {args.command or '(convert)'!r}")
+    if args.command in NOT_PORTED:
+        raise _not_ported(f"command {args.command!r}")
     device = resolve_device(args.device)
+
+    # Pure GFA -> binary conversion: parse, then write (the reference's
+    # native converter writes the same bytes).
+    if args.command is None and args.input_gfa and args.output:
+        from .fileformat import save_flatgfa
+
+        save_flatgfa(
+            args.output, parse_gfa_file(args.input_gfa),
+            spare=args.prealloc_factor,
+        )
+        return
+
     g = _load(args)
     if args.command == "serve":
         _serve(parser, args, g, device, stdin, out)
         return
-    dg = build_graph(
-        g,
-        device,
-        ell_objective=args.ell_objective,
-        cross_matrix="auto" if _needs_masked_index(args) else "never",
-    )
-    _run_depth(args, g, dg, out)
+
+    dg_cache: list = []
+
+    def make_dg():
+        if not dg_cache:
+            dg_cache.append(
+                build_graph(
+                    g,
+                    device,
+                    ell_objective=args.ell_objective,
+                    cross_matrix=(
+                        "auto" if _needs_masked_index(args) else "never"
+                    ),
+                )
+            )
+        return dg_cache[0]
+
+    _run_command(parser, args, g, device, out, make_dg)
 
 
 def _serve(parser, args, g, device, stdin: TextIO, out: TextIO) -> None:
-    """Answer one CLI-grammar depth request per input line over the
-    resident graph; the index is built at the first request."""
+    """Query server: the graph (and its device index, built at the
+    first request that needs it, in full) stays resident while
+    CLI-grammar request lines stream on stdin; each response is the
+    command's output and a frame line ``##end\tok`` or
+    ``##end\terror\t<message>``."""
     dg_cache: list = []
 
     def make_dg():
@@ -308,12 +362,13 @@ def _serve(parser, args, g, device, stdin: TextIO, out: TextIO) -> None:
             continue
         try:
             qargs = parser.parse_args(shlex.split(line))
-            if qargs.command != "depth":
-                raise _not_ported(f"serving {qargs.command!r}")
+            if qargs.command in NOT_SERVED:
+                raise ValueError(f"command {qargs.command!r} is not served")
+            if qargs.command in NOT_PORTED:
+                raise _not_ported(f"command {qargs.command!r}")
             if qargs.input or qargs.input_gfa:
                 raise ValueError("serve requests cannot re-load graphs")
-            _refuse_output(qargs)
-            _run_depth(qargs, g, make_dg(), out)
+            _run_command(parser, qargs, g, device, out, make_dg)
             out.write("##end\tok\n")
         except BrokenPipeError:
             raise
@@ -323,6 +378,125 @@ def _serve(parser, args, g, device, stdin: TextIO, out: TextIO) -> None:
             msg = str(exc).replace("\n", " ")[:500]
             out.write(f"##end\terror\t{msg}\n")
         out.flush()
+
+
+def _run_command(parser, args, g: GraphArrays, device, out, make_dg) -> None:
+    """One command over the loaded graph, as the reference dispatches it;
+    then ``_store`` writes ``-o``/``-O``."""
+    if args.command is None:
+        if not _store(args, g):
+            out.write(emit_gfa(g, order="preserved"))
+        return
+
+    if args.command == "paths":
+        for name in g.path_names():
+            out.write(name.decode() + "\n")
+    elif args.command == "norm":
+        out.write(emit_gfa(g, order="sorted"))
+    elif args.command == "toc":
+        out.write(_toc_text(g, args.bytes))
+    elif args.command == "stats":
+        from .ops.validate import run_stats
+
+        out.write(run_stats(g, self_loops=args.self_loops))
+    elif args.command == "matrix-adj":
+        from .ops.matrix import run_matrix
+
+        out.write(run_matrix(g))
+    elif args.command == "validate":
+        from .ops.validate import run_validate
+
+        out.write(run_validate(g, device))
+    elif args.command == "crush":
+        from .ops.transform import crush
+
+        _emit_transform(args, out, crush(g), order="sorted")
+    elif args.command == "bed":
+        from .bed import parse_bed_file, run_bed_intersect
+
+        out.write(
+            run_bed_intersect(
+                parse_bed_file(args.bed_a), parse_bed_file(args.bed_b)
+            )
+        )
+    elif args.command == "chop":
+        from .ops.transform import chop
+
+        _emit_transform(
+            args,
+            out,
+            chop(g, args.count, with_links=args.links),
+            order="sorted",
+            include_links=args.links,
+        )
+    elif args.command == "flip":
+        from .ops.transform import flip
+
+        flipped, sort_keys = flip(g, make_dg())
+        _emit_transform(
+            args, out, flipped, order="sorted", path_sort_keys=sort_keys
+        )
+    else:
+        # Device-graph-backed queries (index built once, then cached).
+        dg = make_dg()
+        if args.command == "depth":
+            _run_depth(args, g, dg, out)
+        elif args.command == "degree":
+            from .ops.degree import run_degree
+
+            out.write(run_degree(g, dg))
+        elif args.command == "flatten":
+            from .ops.flatten import run_flatten
+
+            name = args.input_gfa or args.input or "graph"
+            base = name.rsplit(".", 1)[0]
+            out.write(run_flatten(g, dg, f"{base}.og"))
+        elif args.command == "position":
+            from .ops.position import run_position
+
+            parts = args.path_pos.split(",")
+            if len(parts) != 3:
+                parser.error("position must be path_name,offset,orientation")
+            result = run_position(g, dg, parts[0], int(parts[1]))
+            if result:
+                out.write(result)
+        elif args.command == "overlap":
+            from .ops.overlap import run_overlap
+
+            out.write(run_overlap(g, dg, _read_lines(args.paths)))
+        elif args.command == "window-depth":
+            from .ops.window_depth import run_window_depth
+
+            out.write(run_window_depth(g, dg, args.path, args.window))
+        elif args.command == "bed-depth":
+            from .bed import parse_bed_file
+            from .ops.window_depth import run_bed_depth
+
+            out.write(run_bed_depth(g, dg, parse_bed_file(args.bed_input)))
+
+    _store(args, g)
+
+
+def _run_depth(args, g, dg, out: TextIO) -> None:
+    # The reference's order: -b, then -S (with or without -d), then -d.
+    from .ops import depth as depth_op
+
+    if args.bed_input:
+        from .bed import parse_bed_file
+        from .ops.window_depth import run_bed_depth
+
+        out.write(run_bed_depth(g, dg, parse_bed_file(args.bed_input)))
+    elif args.subset_batch:
+        subsets = [
+            [p for p in line.replace(",", " ").split() if p]
+            for line in _read_lines(args.subset_batch)
+        ]
+        out.write(depth_op.run_seg_depth_batch(g, dg, subsets))
+    elif args.seg_depth:
+        subset = _read_lines(args.subset_paths) if args.subset_paths else None
+        out.write(depth_op.run_seg_depth(g, dg, subset))
+    else:
+        out.write(depth_op.run_path_depth(g, dg, args.path or None))
 
 
 if __name__ == "__main__":

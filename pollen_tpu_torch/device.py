@@ -10,7 +10,8 @@ environment knobs (POLLEN_CROSS_BUDGET_MB, POLLEN_ELL_PACK16,
 POLLEN_ELL_OBJECTIVE, POLLEN_ELL_SUB); everything is built in numpy
 and moved to the device once, at the end.
 
-``TorchGraph`` keeps the fields the depth queries and the router read,
+``TorchGraph`` keeps the fields the depth queries, the router and the
+other graph commands read (the degree index ``link_seg_bounds`` too),
 under the reference's names. ``from_host_arrays`` turns the fields of a
 reference ``DeviceGraph`` built with ``device="host"`` into one, so a
 state built by either package can be queried by the port.
@@ -49,6 +50,7 @@ TENSOR_FIELDS = (
     "run_path",
     "run_count",
     "run_seg_bounds",
+    "link_seg_bounds",
     "cross_matrix",
     "cross_res",
     "cross_res_seg",
@@ -92,6 +94,7 @@ class TorchGraph:
     run_path: torch.Tensor  # int32[R_pad]
     run_count: torch.Tensor  # int32[R_pad]
     run_seg_bounds: torch.Tensor  # int32[N+1]
+    link_seg_bounds: torch.Tensor  # int32[N+1], both link endpoints by segment
     cross_matrix: torch.Tensor  # uint8[P_pad/2, N_pad] | int8[P_pad, N_pad]
     cross_res: torch.Tensor  # int32[P_pad, K_pad] or (0, 0)
     cross_res_seg: torch.Tensor  # int32[K_pad]
@@ -412,6 +415,15 @@ def build_graph(
         ([0], np.cumsum(g.path_steps[:, 1] - g.path_steps[:, 0]))
     ).astype(np.int32)
 
+    # Degree index: both link endpoints, histogrammed by segment.
+    endpoints = np.concatenate(
+        [(g.link_from >> 1).astype(np.int32), (g.link_to >> 1).astype(np.int32)]
+    )
+    endpoints.sort()
+    link_seg_bounds = np.searchsorted(
+        endpoints, np.arange(n + 1, dtype=np.int32)
+    ).astype(np.int32)
+
     empty32 = np.zeros(0, np.int32)
     arrays = dict(
         steps=g.steps if not minimal else empty32,
@@ -423,6 +435,7 @@ def build_graph(
         run_path=run_path if not minimal else empty32,
         run_count=run_count if not minimal else empty32,
         run_seg_bounds=run_seg_bounds,
+        link_seg_bounds=link_seg_bounds,
         cross_matrix=cross,
         cross_res=cross_res,
         cross_res_seg=cross_res_seg,

@@ -1,17 +1,19 @@
-"""The FlatGFA binary file format, read side (``fgfa-torch -i FILE``).
+"""The FlatGFA binary file format (``fgfa-torch -i``, ``-o``, ``-m``).
 
-The port's own copy of the loader of the JAX package's file format
-(pollen_tpu/fileformat.py ``load_flatgfa``), byte-compatible with the
-reference's on-disk format (flatgfa/src/file.rs:9-313): a magic-tagged
-table of contents holding a (len, capacity) pair for each of the 11
-pools, followed by the pools' raw bytes in a fixed order, each padded
-out to its capacity. Loading is an mmap plus eleven array views. The
-writer is not needed by the port and is not copied.
+The port's own copy of the JAX package's file format
+(pollen_tpu/fileformat.py: ``load_flatgfa``, ``save_flatgfa``,
+``update_in_place``), byte-compatible with the reference's on-disk
+format (flatgfa/src/file.rs:9-313): a magic-tagged table of contents
+holding a (len, capacity) pair for each of the 11 pools, followed by
+the pools' raw bytes in a fixed order, each padded out to its capacity.
+Loading is an mmap plus eleven array views. Capacity > len leaves
+spare room so a file can be rewritten in place (``-m``).
 """
 
 from __future__ import annotations
 
 import mmap
+import os
 from typing import Tuple
 
 import numpy as np
@@ -55,6 +57,110 @@ TOC_DTYPE = np.dtype(
 
 class FlatFileError(ValueError):
     pass
+
+
+def _pools_of(g: GraphArrays) -> dict:
+    """Assemble the 11 pool arrays (in file element layouts) from an arena."""
+    segs = np.zeros(g.num_segments, dtype=SEG_DTYPE)
+    segs["name"] = g.seg_name.astype(np.uint64)
+    segs["seq"] = g.seg_seq
+    segs["optional"] = g.seg_optional
+
+    paths = np.zeros(g.num_paths, dtype=PATH_DTYPE)
+    paths["name"] = g.path_name
+    paths["steps"] = g.path_steps
+    paths["overlaps"] = g.path_overlaps
+
+    links = np.zeros(g.num_links, dtype=LINK_DTYPE)
+    links["from_"] = g.link_from
+    links["to"] = g.link_to
+    links["overlap"] = g.link_overlap
+
+    overlaps = np.zeros(g.overlaps.shape[0], dtype=SPAN_DTYPE)
+    if overlaps.size:
+        overlaps["start"] = g.overlaps[:, 0]
+        overlaps["end"] = g.overlaps[:, 1]
+
+    return {
+        "header": g.header,
+        "segs": segs,
+        "paths": paths,
+        "links": links,
+        "steps": g.steps.astype("<u4"),
+        "seq_data": g.seq_data,
+        "overlaps": overlaps,
+        "alignment": g.alignment.astype("<u4"),
+        "name_data": g.name_data,
+        "optional_data": g.optional_data,
+        "line_order": g.line_order,
+    }
+
+
+def save_flatgfa(filename: str, g: GraphArrays, spare: float = 0.0) -> None:
+    """Write an arena to a binary FlatGFA file.
+
+    ``spare`` reserves extra capacity per pool (fraction of len) for
+    later in-place rewrites.
+    """
+    pools = _pools_of(g)
+    toc = np.zeros((), dtype=TOC_DTYPE)
+    toc["magic"] = MAGIC
+    total = TOC_DTYPE.itemsize
+    caps = {}
+    for name, arr in pools.items():
+        cap = arr.shape[0] + int(arr.shape[0] * spare)
+        caps[name] = cap
+        toc[name]["len"] = arr.shape[0]
+        toc[name]["capacity"] = cap
+        total += cap * _POOL_ELEM[name].itemsize
+
+    with open(filename, "wb") as f:
+        f.truncate(total)
+        f.write(toc.tobytes())
+        for name, arr in pools.items():
+            f.write(arr.tobytes())
+            pad = (caps[name] - arr.shape[0]) * _POOL_ELEM[name].itemsize
+            if pad:
+                f.seek(pad, os.SEEK_CUR)
+        f.truncate(total)
+
+
+def update_in_place(filename: str, g: GraphArrays) -> None:
+    """Rewrite an existing FlatGFA file's pools in place.
+
+    The file's pool *capacities* are kept; each new pool must fit within
+    its existing capacity (the reference's mutate-in-place mode, file.rs
+    view_store / cli -m). Raises FlatFileError when a pool outgrew its
+    slot.
+    """
+    pools = _pools_of(g)
+    with open(filename, "r+b") as f:
+        head = f.read(TOC_DTYPE.itemsize)
+        if len(head) < TOC_DTYPE.itemsize:
+            raise FlatFileError("file too small for FlatGFA TOC")
+        toc = np.frombuffer(head, dtype=TOC_DTYPE).copy()[0]
+        if toc["magic"] != MAGIC:
+            raise FlatFileError("bad magic number: not a FlatGFA file")
+
+        off = TOC_DTYPE.itemsize
+        writes = []
+        for name in POOL_ORDER:
+            arr = pools[name]
+            cap = int(toc[name]["capacity"])
+            if arr.shape[0] > cap:
+                raise FlatFileError(
+                    f"pool {name!r} needs {arr.shape[0]} slots but the "
+                    f"file only reserves {cap}; rewrite with save_flatgfa"
+                )
+            toc[name]["len"] = arr.shape[0]
+            writes.append((off, arr))
+            off += cap * _POOL_ELEM[name].itemsize
+
+        f.seek(0)
+        f.write(toc.tobytes())
+        for pos, arr in writes:
+            f.seek(pos)
+            f.write(arr.tobytes())
 
 
 def read_pools(buf: memoryview) -> Tuple[dict, dict]:

@@ -242,7 +242,7 @@ def test_serve_answers_and_frames():
             "depth -d",
             f"depth -d -s {GOLDEN_DIR / 'tiny.depthpaths'}",
             "depth",
-            "degree",
+            "gaf reads.gaf",  # a command still unported
             "depth -S nowhere.txt",
             "no-such-command",
         ]
@@ -261,7 +261,7 @@ def test_serve_answers_and_frames():
 def test_cli_refuses_unported_and_missing_cuda(capsys):
     gfa = str(GRAPH_DIR / "tiny.gfa")
     with pytest.raises(SystemExit) as exc:
-        run_cli(["--device", "cpu", "-I", gfa, "degree"])
+        run_cli(["--device", "cpu", "-I", gfa, "gaf", "reads.gaf"])
     assert exc.value.code == 1
     assert "not ported yet" in capsys.readouterr().err
     if torch.cuda.is_available():

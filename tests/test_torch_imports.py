@@ -1,5 +1,6 @@
 """The port imports neither JAX nor anything of the JAX package: every
-module of ``pollen_tpu_torch`` and a CLI run load in a fresh interpreter
+module of ``pollen_tpu_torch`` and CLI runs (depth, degree, and flip
+with ``-O``) load in a fresh interpreter
 with ``jax`` and every ``pollen_tpu`` module absent from
 ``sys.modules`` (the machine with the card has no JAX installed), and
 no import statement of the port or of ``chip_smoke.py`` names them, nor
@@ -30,10 +31,13 @@ from pollen_tpu_torch import cli
 for argv, golden in (
     (["depth", "-d", "-s", sys.argv[2]], sys.argv[3]),
     (["depth", "-d"], sys.argv[4]),
+    (["degree"], sys.argv[5]),
+    (["-O", sys.argv[6], "flip"], sys.argv[7]),
 ):
     out = io.StringIO()
     cli.main(["--device", "cpu", "-I", sys.argv[1], *argv], stdout=out)
     assert out.getvalue() == open(golden).read(), argv
+assert open(sys.argv[6]).read() == open(sys.argv[1]).read()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pollen_tpu", "bench",
                                        "probes"))
@@ -42,7 +46,7 @@ print(len(names))
 """
 
 
-def test_port_imports_nothing_of_jax_or_pollen_tpu():
+def test_port_imports_nothing_of_jax_or_pollen_tpu(tmp_path):
     golden = REPO / "tests" / "golden"
     proc = subprocess.run(
         [
@@ -53,6 +57,9 @@ def test_port_imports_nothing_of_jax_or_pollen_tpu():
             str(golden / "tiny.depthpaths"),
             str(golden / "tiny.depth_subset"),
             str(golden / "tiny.depth"),
+            str(golden / "tiny.degree"),
+            str(tmp_path / "tiny.out.gfa"),
+            str(golden / "tiny.flip"),
         ],
         cwd=REPO,
         capture_output=True,
@@ -60,8 +67,8 @@ def test_port_imports_nothing_of_jax_or_pollen_tpu():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # __main__, cli, device, fileformat, flatgfa, synth, kernels (+8),
-    # ops (+1), probes (+3)
+    # __main__, bed, cli, device, emit, fileformat, flatgfa, synth,
+    # kernels (+8), ops (+9), probes (+7)
     assert int(proc.stdout.strip()) >= 20
 
 

@@ -10,7 +10,6 @@ the reference does.
 """
 
 import dataclasses
-import io
 
 import numpy as np
 import pytest
@@ -37,6 +36,7 @@ from pollen_tpu_torch.device import (
 from pollen_tpu_torch.kernels import gatherb
 from pollen_tpu_torch.ops import depth as port_depth
 from pollen_tpu_torch.synth import synth_graph
+from test_torch_ops import port_run, ref_run
 
 torch.set_num_threads(1)
 
@@ -225,43 +225,53 @@ COMMAND_LINES = [
 @pytest.mark.parametrize("argv", COMMAND_LINES, ids=lambda a: " ".join(a) or "empty")
 def test_port_grammar_matches_reference(argv):
     """The port's build_parser parses a command line to the reference's
-    namespace, plus ``--device``; _needs_masked_index agrees."""
+    namespace, plus ``--device``; _needs_masked_index agrees, except
+    that ``depth -b`` builds no masked index in the port (the reference
+    still builds them for ``-b`` with ``-S``, which the bed route never
+    reads)."""
     ref = ref_cli.build_parser().parse_args(argv)
     port = port_cli.build_parser().parse_args(argv)
     assert port.device == "cuda"
     got = vars(port)
     del got["device"]
     assert got == vars(ref)
-    assert port_cli._needs_masked_index(port) == ref_cli._needs_masked_index(ref)
+    want = ref_cli._needs_masked_index(ref) and not getattr(
+        ref, "bed_input", None
+    )
+    assert port_cli._needs_masked_index(port) == want
 
 
-# The reference writes -o/-O after every command (its _store); the port
-# has no writer yet, so it refuses them: exit 1, "not ported" on stderr,
-# no file written, nothing answered.
+# The reference writes -o/-O after every command (its _store), and so
+# does the port: the file holds the reference's bytes and stdout the
+# command's answer. (Until the port had a writer these tests checked that
+# it refused both flags.)
 @pytest.mark.parametrize("flag", ["-o", "-O"])
 def test_cli_refuses_output_flags(flag, tmp_path, capsys):
-    out_file = tmp_path / "out.graph"
-    stdout = io.StringIO()
-    with pytest.raises(SystemExit) as exc:
-        port_cli.main(
-            ["--device", "cpu", "-I", str(GRAPH_DIR / "loops.gfa"), flag,
-             str(out_file), "depth"],
-            stdin=io.StringIO(), stdout=stdout,
-        )
-    assert exc.value.code == 1
-    assert "not ported" in capsys.readouterr().err
-    assert not out_file.exists() and stdout.getvalue() == ""
+    gfa = str(GRAPH_DIR / "loops.gfa")
+    texts, files = [], []
+    for who, run in (("ref", ref_run), ("port", port_run)):
+        out_file = tmp_path / f"{who}.graph"
+        texts.append(run(["-I", gfa, flag, str(out_file), "depth"]))
+        files.append(out_file.read_bytes())
+    assert texts[0] == texts[1] and texts[0]
+    assert files[0] == files[1] and files[0]
+    assert capsys.readouterr().err == ""
 
 
 def test_serve_refuses_an_output_request(tmp_path):
-    out_file = tmp_path / "out.flatgfa"
-    stdout = io.StringIO()
-    port_cli.main(
-        ["--device", "cpu", "-I", str(GRAPH_DIR / "loops.gfa"), "serve"],
-        stdin=io.StringIO(f"depth -d\n-o {out_file} depth -d\ndepth -d\n"),
-        stdout=stdout,
-    )
-    frames = [ln for ln in stdout.getvalue().splitlines() if ln.startswith("##end")]
-    assert frames[0] == frames[2] == "##end\tok"
-    assert frames[1].startswith("##end\terror\t") and "not ported" in frames[1]
-    assert not out_file.exists()
+    """Served ``-o`` and ``-O`` requests write the reference's bytes,
+    answer ``##end\tok`` and serving goes on."""
+    gfa = str(GRAPH_DIR / "loops.gfa")
+    texts, files = [], []
+    for who, run in (("ref", ref_run), ("port", port_run)):
+        out_file = tmp_path / f"{who}.flatgfa"
+        texts.append(run(["-I", gfa, "serve"],
+                         f"depth -d\n-o {out_file} depth -d\n"
+                         f"-O {out_file}.gfa\ndepth -d\n"))
+        files.append(out_file.read_bytes())
+        files.append((tmp_path / f"{who}.flatgfa.gfa").read_bytes())
+    frames = [ln for ln in texts[1].splitlines() if ln.startswith("##end")]
+    assert frames == ["##end\tok"] * 4
+    assert texts[0] == texts[1]
+    assert files[0] == files[2] and files[0]
+    assert files[1] == files[3] == (GRAPH_DIR / "loops.gfa").read_bytes()
