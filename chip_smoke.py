@@ -93,6 +93,21 @@ CLI runs end to end over ``-i chr8.flatgfa`` (written by ``-o``):
 seconds. Its rows are the ``{"device_ops": [...]}`` line, printed
 before the kernels' line.
 
+The rest of the CLI has no kernel either. Phase 2 runs ``inject``
+(against the ``*.inject`` goldens), ``gaf`` (``-s``, ``-b``, ``-p``),
+``matrix``, ``pangenotype`` and ``extract`` (and its ``-o``) on the 8
+fixtures and examples/example.gfa with seeded read sets (and
+example.gaf) against ``--device cpu``, the ``seq-export`` /
+``seq-import`` round trip against tiny.packedseq.hex, ``bench --wcl
+[-p]`` against a newline count, ``exine-torch depth -a -r`` against the
+depth goldens, and one serve stream of them. Its scale phase holds
+``chunk_reads`` over a seeded GAF of 2^20 reads of chr8_third (1-31
+steps each) and ``node_depth_accel`` at 2^16 nodes against a CPU copy
+and a numpy formula, exact, times each as the graph commands' ops
+(their rows join the ``device_ops`` line), and times ``gaf -b`` (split
+into load, ingest, parse and chunk), ``gaf``, ``pangenotype``,
+``bench --wcl``, ``seq-*``, ``inject`` and ``extract`` end to end.
+
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
 batch: phase 2's ``-S`` requests and phase 3's batches; the scan
@@ -2579,6 +2594,40 @@ def max_err(got, want) -> float:
     return worst
 
 
+def device_op_row(name, reference, shape, fn, check, nbytes, card,
+                  on_card=True):
+    """One ``device_ops`` row: ``fn``'s answer held by ``check`` (against
+    a CPU copy and a numpy formula; it raises on a difference and returns
+    the largest error), then its CUDA-event wall, CUDA-graph device time
+    (an op that answers on the host, ``on_card=False``, cannot be
+    captured), profiler busy time, idle share and byte bound."""
+    from pollen_tpu_torch.probes.timing import replay_us
+
+    got = fn()
+    if on_card:
+        outs = got if isinstance(got, tuple) else (got,)
+        need(all(o.is_cuda for o in outs), f"{name}: not on the card")
+    err = check(got)
+    wall_us = cuda_ms(fn) * 1e3
+    dev_us = replay_us(fn) if on_card else None
+    # No device events in the trace: busy time and idle share were not
+    # measured (not zero).
+    per = device_profile(fn, reps=10)
+    busy = sum(per.values()) if per else None
+    idle = None if busy is None else 1 - busy / wall_us
+    bound_us = nbytes / HBM_BPS * 1e6
+    dev = ("not graph-safe" if dev_us is None else
+           f"{dev_us:.2f} us device ({dev_us / bound_us:.1f}x its bound)")
+    busy_text = describe_profile(per) + (
+        "" if busy is None else f", idle {idle:.3f}")
+    print(f"{name} at {shape} [{card}]: {wall_us:.2f} us wall, {dev}, "
+          f"{busy_text}; byte bound {bound_us:.2f} us; equal to cpu and "
+          "numpy", flush=True)
+    return dict(name=name, reference=reference, shape=shape,
+                device_us=dev_us, wall_us=wall_us, bound_us=bound_us,
+                busy_us=busy, idle_share=idle, max_abs_err=err)
+
+
 def phase_graph_ops(graphs: dict, card: str) -> list:
     """Phase 3 (graph commands) at chr8_third with links: each device
     op on cuda against the same function on a CPU copy and a numpy
@@ -2594,7 +2643,6 @@ def phase_graph_ops(graphs: dict, card: str) -> list:
     from pollen_tpu_torch.fileformat import save_flatgfa
     from pollen_tpu_torch.ops import degree, flatten, overlap, position
     from pollen_tpu_torch.ops import transform, validate, window_depth
-    from pollen_tpu_torch.probes.timing import replay_us
 
     g, linked, dropped = add_path_links(graphs["chr8_third"][0])
     t0 = time.perf_counter()
@@ -2660,32 +2708,16 @@ def phase_graph_ops(graphs: dict, card: str) -> list:
     )
     rows = []
     for name, fn in fns.items():
-        got = fn(*cuda_args[name])
-        outs = got if isinstance(got, tuple) else (got,)
-        if name != "interval_depth":
-            need(all(o.is_cuda for o in outs), f"{name}: not on the card")
-        err = max(max_err(got, fn(*cpu_args[name])), max_err(got, want[name]))
-        call = functools.partial(fn, *cuda_args[name])
-        wall_us = cuda_ms(call) * 1e3
-        graph_safe = name != "interval_depth"
-        dev_us = replay_us(call) if graph_safe else None
-        # No device events in the trace: busy time and idle share were
-        # not measured (not zero).
-        per = device_profile(call, reps=10)
-        busy = sum(per.values()) if per else None
-        idle = None if busy is None else 1 - busy / wall_us
-        bound_us = nbytes[name] / HBM_BPS * 1e6
-        rows.append(dict(
-            name=name, reference=GRAPH_OP_REFS[name], shape=shapes[name],
-            device_us=dev_us, wall_us=wall_us, bound_us=bound_us,
-            busy_us=busy, idle_share=idle, max_abs_err=err,
-        ))
-        dev = "not graph-safe" if dev_us is None else f"{dev_us:.2f} us device"
-        busy_text = (describe_profile(per) if busy is None else
-                     f"busy {busy:.2f} us, idle {idle:.3f}")
-        print(f"{name} at {shapes[name]} [{card}]: {wall_us:.2f} us wall, "
-              f"{dev}, {busy_text}; byte bound {bound_us:.2f} us; equal to "
-              "cpu and numpy", flush=True)
+        def check(got, name=name, fn=fn):
+            return max(max_err(got, fn(*cpu_args[name])),
+                       max_err(got, want[name]))
+
+        # interval_depth answers on the host (numpy).
+        on_card = name != "interval_depth"
+        rows.append(device_op_row(
+            name, GRAPH_OP_REFS[name], shapes[name],
+            functools.partial(fn, *cuda_args[name]), check, nbytes[name],
+            card, on_card=on_card))
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -2728,6 +2760,427 @@ def phase_graph_ops(graphs: dict, card: str) -> list:
           + ", ".join(f"{k} {v:.3f}" for k, v in e2e.items())
           + f" (chr8_third with links, -i chr8.flatgfa written by -o; flip "
           f"and flatten at bench with links)", flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The rest of the CLI: GAF lookup, pangenotype, extract, inject, seq-*,
+# bench --wcl, and exine-torch (no kernel of their own either)
+# ---------------------------------------------------------------------------
+
+
+def numpy_chunker(seg_len, steps, read_bounds, start, end):
+    """The reference's PathChunker state machine (gaf.rs
+    PathChunker::next; ``tests/test_gaf_bed.py`` ``spec_chunker``) as a
+    numpy formula: for each read, the first step reaching past ``start``
+    opens the interval and the first step from there reaching past
+    ``end`` closes it. Returns (kind, a, b); a and b hold the spec's
+    values where kind is not NONE."""
+    import numpy as np
+
+    t = steps.shape[0]
+    lens = seg_len[(steps >> 1).astype(np.int64)].astype(np.int64)
+    counts = np.diff(read_bounds)
+    rid = np.repeat(np.arange(counts.shape[0]), counts)
+    first = np.repeat(read_bounds[:-1], counts)
+    csum = np.concatenate(([0], np.cumsum(lens)))
+    pos = csum[:-1] - csum[first]
+    nxt = pos + lens
+    idx = np.arange(t)
+    s, e = start[rid], end[rid]
+    big = np.int64(t)
+    # First step of each read with nxt > start (nxt never decreases).
+    open_at = np.full(counts.shape[0], big)
+    np.minimum.at(open_at, rid, np.where(nxt > s, idx, big))
+    close_at = np.full(counts.shape[0], big)
+    np.minimum.at(close_at, rid, np.where(nxt > e, idx, big))
+    o = open_at[rid]
+    c = np.maximum(close_at[rid], o)
+    kind = np.where(
+        (idx == o) | ((idx == c) & (c > o)), 2,
+        np.where((idx > o) & (idx < c), 1, 0),
+    ).astype(np.uint8)
+    a = np.where(idx == o, s - pos, 0)
+    b = np.where(idx == c, e - pos, lens)
+    return kind, a, b
+
+
+def exine(argv) -> str:
+    """``exine-torch`` with ``argv``; its stdout."""
+    import contextlib
+
+    from pollen_tpu_torch.accel.__main__ import main as exine_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        exine_main(argv)
+    return out.getvalue()
+
+
+def sequential_names(path: pathlib.Path) -> bool:
+    import numpy as np
+
+    from pollen_tpu_torch import parse_gfa_file
+
+    g = parse_gfa_file(str(path))
+    return bool(g.num_segments and (
+        g.seg_name == np.arange(1, g.num_segments + 1)).all())
+
+
+def fixture_gafs(tmp: pathlib.Path, path: pathlib.Path, g) -> list:
+    """Two seeded read sets of a graph's path sub-walks (1-40 steps, as
+    benchsuite/runner.py ``ensure_gaf`` makes them; 40 reads each)."""
+    from pollen_tpu_torch.synth import synth_gaf
+
+    gafs = []
+    for seed in (0, 1):
+        gaf = tmp / f"{path.stem}.{seed}.gaf"
+        gaf.write_bytes(synth_gaf(g, 40, seed=seed, max_steps=40))
+        gafs.append(str(gaf))
+    return gafs
+
+
+def fixture_gaf_commands(tmp: pathlib.Path, path: pathlib.Path) -> list:
+    """The GAF and extract command lines checked against ``--device cpu``
+    on one graph: its two seeded read sets and a few neighborhoods."""
+    from pollen_tpu_torch import parse_gfa_file
+
+    g = parse_gfa_file(str(path))
+    gafs = fixture_gafs(tmp, path, g)
+    name = int(g.seg_name[g.num_segments // 2])
+    sub = tmp / f"{path.stem}.sub.flatgfa"
+    return [
+        ["gaf", gafs[0]], ["gaf", "-s", gafs[0]], ["gaf", "-b", gafs[1]],
+        ["gaf", "-b", "-p", gafs[0]], ["matrix", *gafs],
+        ["pangenotype", gafs[1], gafs[0]],
+        ["extract", "-n", str(name), "-c", "1"],
+        ["extract", "-n", str(name), "-c", "2", "-d", "5", "-e", "2"],
+        ["extract", "-n", str(int(g.seg_name[0])), "-c", "3", "-d", "0"],
+        ["-o", str(sub), "extract", "-n", str(name), "-c", "2"],
+    ]
+
+
+def phase_goldens_gaf(tmp: pathlib.Path):
+    """Phase 2 (the rest of the CLI): ``fgfa-torch --device cuda`` on the
+    8 fixtures and on examples/example.gfa with example.gaf: ``inject``
+    against the ``*.inject`` goldens; ``gaf`` (``-s``, ``-b``, ``-p``),
+    ``matrix``, ``pangenotype`` and ``extract`` (and its ``-o``) against
+    ``--device cpu``; the ``seq-export``/``seq-import`` round trip
+    against tiny.packedseq.hex; ``bench --wcl [-p]`` against a newline
+    count; ``exine-torch depth -a -r`` against the ``*.depth`` goldens
+    (graphs named 1..N); one serve stream of them with ``depth -d``."""
+    import contextlib
+
+    golden = REPO / "tests" / "golden"
+    n_runs = 0
+    graphs = sorted((REPO / "tests" / "graphs").glob("*.gfa"))
+    example = REPO / "examples" / "example.gfa"
+    with contextlib.chdir(REPO):
+        for path in graphs + [example]:
+            cmds = fixture_gaf_commands(tmp, path)
+            if path == example:
+                gaf = str(REPO / "examples" / "example.gaf")
+                cmds += [["gaf", gaf], ["gaf", "-s", gaf], ["gaf", "-b", gaf],
+                         ["matrix", gaf, gaf], ["pangenotype", gaf]]
+            for argv in cmds:
+                outs = []
+                for device in ("cuda", "cpu"):
+                    text = run_cli(["--device", device, "-I", str(path),
+                                    *argv])
+                    if argv[0] == "-o":
+                        text = pathlib.Path(argv[1]).read_bytes()
+                    outs.append(text)
+                need(outs[0] == outs[1] and outs[0],
+                     f"{' '.join(argv)} on {path.name}: cuda differs from "
+                     "cpu (or is empty)")
+                n_runs += 2
+            if path == example:
+                continue
+            got = run_cli(["--device", "cuda", "-I", str(path), "inject",
+                           "--bed", str(golden / f"{path.stem}.bed")])
+            need(got == (golden / f"{path.stem}.inject").read_text(),
+                 f"inject on {path.name} differs from {path.stem}.inject")
+            n_runs += 1
+            if sequential_names(path):
+                got = exine(["--device", "cuda", "depth", "-a", "-r",
+                             str(path)])
+                need(got == (golden / f"{path.stem}.depth").read_text(),
+                     f"exine-torch depth -a -r on {path.name} differs from "
+                     f"{path.stem}.depth")
+                n_runs += 1
+
+    seq = tmp / "tiny.seq"
+    seq.write_text("AC\nTG A\n")
+    packed = tmp / "tiny.packedseq"
+    run_cli(["--device", "cuda", "seq-export", str(seq), str(packed)])
+    want = bytes.fromhex((golden / "tiny.packedseq.hex").read_text().strip())
+    need(packed.read_bytes() == want, "seq-export differs from "
+         "tiny.packedseq.hex")
+    need(run_cli(["--device", "cuda", "seq-import", str(packed)])
+         == "ACTGA\n", "seq-import does not give ACTGA back")
+    text = tmp / "lines.txt"
+    text.write_bytes(b"".join(b"x" * (i % 97) + b"\n" for i in range(40000)))
+    lines = text.read_bytes().count(b"\n")
+    need(text.stat().st_size > 1 << 20, "bench --wcl file under 1 MiB")
+    for extra in ([], ["-p"]):
+        got = run_cli(["--device", "cuda", "bench", "--wcl", str(text),
+                       *extra])
+        need(got == f"{lines}\n", f"bench --wcl {extra}: {got!r}, "
+             f"expected {lines}")
+    n_runs += 4
+
+    from pollen_tpu_torch import parse_gfa_file
+
+    rand1 = REPO / "tests" / "graphs" / "rand1.gfa"
+    gafs = fixture_gafs(tmp, rand1, parse_gfa_file(str(rand1)))
+    requests = [
+        f"gaf {gafs[0]}", "depth -d", f"matrix {gafs[0]} {gafs[0]}",
+        "extract -n 3 -c 2", f"inject --bed {golden / 'rand1.bed'}",
+        f"gaf -b {gafs[0]}", f"pangenotype {gafs[0]}", "depth -d",
+        f"gaf -s {gafs[0]}",
+    ]
+    served = {}
+    for device in ("cuda", "cpu"):
+        served[device] = run_cli(["--device", device, "-I", str(rand1),
+                                  "serve"], "\n".join(requests) + "\n")
+    # gaf's plain text ends without a newline: its frame ends that line.
+    need(served["cuda"].count("##end\t") == len(requests)
+         == served["cuda"].count("##end\tok\n"),
+         f"serve frames: {served['cuda'].count('##end')} of "
+         f"{len(requests)}, not all ok")
+    need(served["cuda"] == served["cpu"], "serve on cuda differs from cpu")
+    print(f"phase 2 (the rest of the CLI): {n_runs} CLI runs on 8 fixtures "
+          "and example.gfa: gaf (-s, -b, -p), matrix, pangenotype and "
+          "extract (and its -o) equal to --device cpu; inject equal to the "
+          "goldens; exine-torch depth -a -r equal to the depth goldens; "
+          "seq-export / seq-import equal to tiny.packedseq.hex; bench --wcl "
+          f"[-p] equal to {lines} lines; serve answered {len(requests)} "
+          "mixed requests ##end ok, equal to cpu", flush=True)
+
+
+
+
+def timed(e2e: dict, key: str, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    e2e[key] = time.perf_counter() - t0
+    return out
+
+
+def phase_gaf_ops(graphs: dict, card: str) -> list:
+    """Phase 3 (the rest of the CLI) at chr8_third: ``chunk_reads`` over
+    a seeded GAF of 2^20 long reads (sub-walks of 1-31 steps) and
+    ``node_depth_accel`` on seeded memories (N = 2^16, E = 64, P = 128),
+    each on cuda against a CPU copy and a numpy formula (the accelerator
+    also against its single-PE form), exact, and timed as the graph
+    commands' ops are; then CLI runs end to end, host clock: ``gaf -b``
+    (its seconds split into load, ingest, parse and chunk), ``gaf`` over
+    a 2^14-read prefix, ``pangenotype`` over 4 files of 2^18 reads,
+    ``bench --wcl [-p]`` over the 2^20-read file, ``seq-export`` and
+    ``seq-import`` over 16 MiB of bases, ``inject`` (the library call at
+    chr8_third, the CLI at bench with links) and ``extract`` at the
+    unfused graph."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.accel.kernel import (
+        node_depth_accel, node_depth_accel_simple,
+    )
+    from pollen_tpu_torch.bed import parse_bed
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.fileformat import load_flatgfa, save_flatgfa
+    from pollen_tpu_torch.ops import gaf as gaf_op
+    from pollen_tpu_torch.ops.inject import inject
+    from pollen_tpu_torch.synth import synth_gaf
+
+    g, dg, _ = graphs["chr8_third"]
+    n_reads = 2**20
+    t0 = time.perf_counter()
+    data = synth_gaf(g, n_reads, seed=17, max_steps=31)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reads = gaf_op.parse_gaf(data, g.seg_id_by_name())
+    parse_s = time.perf_counter() - t0
+    t, r = reads.steps.shape[0], reads.num_reads
+    print(f"chr8_third GAF: {r} reads, {t} read steps, {len(data)} bytes "
+          f"(made in {made_s:.3f} s, parsed whole in {parse_s:.3f} s)",
+          flush=True)
+    read_id = np.repeat(np.arange(r, dtype=np.int32),
+                        np.diff(reads.read_bounds))
+
+    def chunk_args(device):
+        return (dg.seg_len.to(device),
+                torch.from_numpy(reads.steps.view(np.int32)).to(device),
+                torch.from_numpy(read_id).to(device),
+                torch.from_numpy(reads.start).to(device),
+                torch.from_numpy(reads.end).to(device))
+
+    def check_chunks(got):
+        got = tuple(x.cpu() for x in got)
+        need(got[0].dtype == torch.uint8 and got[1].dtype == torch.int64
+             and got[2].dtype == torch.int64, "chunk_reads dtypes")
+        err = max_err(got, gaf_op.chunk_reads(*chunk_args("cpu")))
+        # The spec's a and b hold where a step is covered.
+        kind, a, b = numpy_chunker(g.seg_len, reads.steps,
+                                   reads.read_bounds, reads.start, reads.end)
+        hit = kind != gaf_op.KIND_NONE
+        k, ga, gb = (x.numpy() for x in got)
+        return max(err, max_err((k, ga[hit], gb[hit]),
+                                (kind, a[hit], b[hit])))
+
+    rows = [device_op_row(
+        "chunk_reads", "pollen_tpu/ops/gaf.py:259",
+        f"T={t} read steps, R={r} reads on chr8_third (N={g.num_segments})",
+        functools.partial(gaf_op.chunk_reads, *chunk_args("cuda")),
+        check_chunks,
+        # steps, read id, the seg_len gather in; kind, a, b out; start
+        # and end a read.
+        t * (4 + 4 + 4 + 1 + 8 + 8) + 16 * r, card,
+    )]
+
+    rng = np.random.default_rng(8)
+    n, e, p = 2**16, 64, 128
+    ids = rng.integers(0, p + 1, (n, e)).astype(np.int32)
+    ids[rng.random((n, e)) < 0.3] = 0  # empty slots
+    consider = rng.integers(0, 2, p + 1).astype(np.int32)
+    w = consider.copy()
+    w[0] = 0
+    present = np.zeros((n, p + 1), bool)
+    present[np.repeat(np.arange(n), e), ids.reshape(-1)] = True
+    accel_want = (w[ids].sum(1).astype(np.int32),
+                  (present & (w > 0)).sum(1).astype(np.int32))
+    simple = node_depth_accel_simple(torch.from_numpy(ids),
+                                     torch.from_numpy(consider), p)
+    need(all(np.array_equal(x.numpy(), y) for x, y in zip(simple,
+                                                          accel_want)),
+         "node_depth_accel_simple differs from numpy")
+
+    def check_accel(got):
+        cpu = node_depth_accel(torch.from_numpy(ids),
+                               torch.from_numpy(consider), p)
+        return max(max_err(got, cpu), max_err(got, accel_want))
+
+    rows.append(device_op_row(
+        "node_depth_accel", "pollen_tpu/accel/kernel.py:24",
+        f"N={n}, E={e}, P={p}",
+        functools.partial(node_depth_accel, torch.from_numpy(ids).cuda(),
+                          torch.from_numpy(consider).cuda(), p),
+        check_accel, 4 * n * e + 4 * (p + 1) + 2 * 4 * n, card,
+    ))
+
+    e2e = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        chr8 = tmp / "chr8.flatgfa"
+        save_flatgfa(str(chr8), g)
+        reads_gaf = tmp / "reads.gaf"
+        reads_gaf.write_bytes(data)
+        cli = ["--device", "cuda", "-i", str(chr8)]
+        text = timed(e2e, "gaf -b", lambda: run_cli(
+            [*cli, "gaf", "-b", str(reads_gaf)]))
+        need(text == f"{t}\n", f"gaf -b: {text!r}, expected {t}")
+        # gaf -b's seconds, split: load, ingest, parse, chunk.
+        split = {}
+        g2 = timed(split, "load", lambda: load_flatgfa(str(chr8)))
+        dg2 = timed(split, "ingest", lambda: build_graph(
+            g2, "cuda", cross_matrix="never"))
+        names = g2.seg_id_by_name()
+        windows = timed(split, "parse", lambda: list(
+            gaf_op.iter_gaf_windows(str(reads_gaf), names)))
+        counts = timed(split, "chunk", lambda: [
+            gaf_op.chunk_events(g2, dg2, w)[1].shape[0] for w in windows])
+        need(sum(counts) == t, "windowed chunk counts differ")
+        del dg2, g2, windows
+        print(f"gaf -b at chr8_third [{card}]: {e2e['gaf -b']:.3f} s end to "
+              f"end; alone: " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in split.items())
+              + f" ({len(counts)} windows of 2 MiB)", flush=True)
+
+        prefix = tmp / "prefix.gaf"
+        cut = 0
+        for _ in range(2**14):
+            cut = data.index(b"\n", cut) + 1
+        prefix.write_bytes(data[:cut])
+        text = timed(e2e, "gaf (2^14 reads)", lambda: run_cli(
+            [*cli, "gaf", str(prefix)]))
+        need(text.count("\n") == 2**14, "gaf text: not a line a read")
+        for extra in ([], ["-p"]):
+            key = "bench --wcl" + (" -p" if extra else "")
+            text = timed(e2e, key, lambda: run_cli(
+                ["--device", "cuda", "bench", "--wcl", str(reads_gaf),
+                 *extra]))
+            need(text == f"{r}\n", f"{key}: {text!r}, expected {r}")
+        del data, reads
+
+        samples = []
+        for s in range(4):
+            path = tmp / f"sample{s}.gaf"
+            path.write_bytes(synth_gaf(g, 2**18, seed=100 + s, max_steps=31))
+            samples.append(str(path))
+        text = timed(e2e, "pangenotype (4 x 2^18 reads)", lambda: run_cli(
+            [*cli, "pangenotype", *samples]))
+        rows_text = text.split("\n")
+        need(len(rows_text) == 5 and rows_text[-1] == ""
+             and all(len(x) == g.num_segments for x in rows_text[:4]),
+             "pangenotype: wrong shape")
+        first = gaf_op.parse_gaf_file(samples[0], g)
+        row0 = np.zeros(g.num_segments, bool)
+        row0[(first.steps >> 1).astype(np.int64)] = True
+        need(rows_text[0] == (row0.astype(np.uint8) + 48).tobytes().decode(),
+             "pangenotype's first row differs from its reads' segments")
+
+        seq = tmp / "bases.txt"
+        bases = np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, 16 << 20)]
+        body = np.full((bases.shape[0] // 60, 61), ord("\n"), np.uint8)
+        body[:, :60] = bases[: body.shape[0] * 60].reshape(-1, 60)
+        seq.write_bytes(body.tobytes() + bases[body.shape[0] * 60:].tobytes())
+        packed = tmp / "bases.packedseq"
+        timed(e2e, "seq-export (16 MiB)", lambda: run_cli(
+            ["--device", "cuda", "seq-export", str(seq), str(packed)]))
+        text = timed(e2e, "seq-import (16 MiB)", lambda: run_cli(
+            ["--device", "cuda", "seq-import", str(packed)]))
+        need(text.encode() == bases.tobytes() + b"\n",
+             "seq-export / seq-import does not round-trip")
+
+        # inject: the library call at chr8_third, 4 regions of 4 paths.
+        lo = rng.integers(1000, 100000, 4)
+        bed = "".join(f"p{i}\t{a}\t{a + 5000 + 37 * i}\tregion{i}\n"
+                      for i, a in enumerate(lo))
+        new_g = timed(e2e, "inject (library, chr8_third, 4 regions)",
+                      lambda: inject(g, parse_bed(bed.encode())))
+        need(new_g.num_paths == g.num_paths + 4, "inject: paths not added")
+        for i in range(4):
+            steps = new_g.path_step_slice(g.num_paths + i)
+            got = int(new_g.seg_len[(steps >> 1).astype(np.int64)].sum())
+            need(got == 5000 + 37 * i, f"inject region {i}: {got} bp")
+        del new_g
+    gb, _, _ = add_path_links(graphs["bench"][0])
+    gu, _, _ = add_path_links(graphs["unfused"][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        bench, unfused = tmp / "bench.flatgfa", tmp / "unfused.flatgfa"
+        save_flatgfa(str(bench), gb)
+        save_flatgfa(str(unfused), gu)
+        bed_file = tmp / "regions.bed"
+        bed_file.write_text(bed)
+        text = timed(e2e, "inject (bench with links)", lambda: run_cli(
+            ["--device", "cuda", "-i", str(bench), "inject", "--bed",
+             str(bed_file)]))
+        need(text.count("\nP\tregion") == 4, "inject CLI: paths missing")
+        origin = str(gu.num_segments // 32)  # a segment of few steps
+        text = timed(e2e, "extract (unfused with links)", lambda: run_cli(
+            ["--device", "cuda", "-i", str(unfused), "extract", "-n", origin,
+             "-c", "2"]))
+        need(text.startswith(f"S\t{origin}\t"), "extract: origin not first")
+    print(f"CLI end to end [{card}], seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in e2e.items())
+          + " (gaf, pangenotype, bench, seq-* at chr8_third over -i; extract "
+          "at the unfused graph with links: _merge_subpaths walks every "
+          "path step by step in Python, 6 passes, so chr8_third would take "
+          "minutes; inject's CLI at bench with links, where its sorted GFA "
+          f"text takes seconds); extract printed {text.count(chr(10))} lines",
+          flush=True)
     return rows
 
 
@@ -2792,6 +3245,8 @@ def main() -> int:
         stamp("scan-family main path done")
         phase_goldens_commands(pathlib.Path(tmp))
         stamp("graph commands on the fixtures done")
+        phase_goldens_gaf(pathlib.Path(tmp))
+        stamp("the rest of the CLI on the fixtures done")
     reset_launches()
     flat = phase_flat_ell(graphs)
     flat_counts = launch_counts()
@@ -2823,6 +3278,8 @@ def main() -> int:
     stamp("flat-ELL and probe timing done")
     device_ops = phase_graph_ops(graphs, card)
     stamp("graph-command ops at scale done")
+    device_ops += phase_gaf_ops(graphs, card)
+    stamp("the rest of the CLI at scale done")
     rows = [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=launches[name], max_abs_err=errs.max[name],

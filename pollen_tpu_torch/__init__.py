@@ -4,25 +4,28 @@ It sits beside the JAX package (``pollen_tpu``), which stays the
 reference, imports ``torch`` and never ``jax``, and imports nothing of
 ``pollen_tpu``: the arena and its GFA parser (:mod:`.flatgfa`), the
 binary file format (:mod:`.fileformat`), the emitter (:mod:`.emit`),
-the BED reader (:mod:`.bed`) and the CLI grammar are the port's own
-copies.
+the BED reader (:mod:`.bed`), the packed sequences (:mod:`.packedseq`)
+and the CLI grammars are the port's own copies.
 
 Modules, from the entry point down:
 
-* :mod:`pollen_tpu_torch.cli` — ``fgfa-torch``: ``depth`` and the other
-  graph commands, ``-o``/``-O``/``-m``, and ``serve``.
+* :mod:`pollen_tpu_torch.cli` — ``fgfa-torch``: every command of
+  ``fgfa-tpu``, ``-o``/``-O``/``-m``, and ``serve``.
+* :mod:`pollen_tpu_torch.accel` — ``exine-torch``: the fixed-dimension
+  depth accelerator (its PE array plain torch on the device).
 * :mod:`pollen_tpu_torch.ops.depth` — depth queries and the router.
 * :mod:`pollen_tpu_torch.ops` ``degree``, ``flatten``, ``validate``,
   ``position``, ``overlap``, ``transform``, ``window_depth``,
-  ``matrix`` — the other graph commands (plain torch on the device,
-  numpy on the host).
+  ``matrix``, ``gaf``, ``extract``, ``inject``, ``bench`` — the other
+  graph commands (plain torch on the device, numpy on the host).
 * :mod:`pollen_tpu_torch.device` — ``TorchGraph`` and its ingest.
 * :mod:`pollen_tpu_torch.kernels` — host packers, plain versions and the
   wrappers of the hand-written CUDA kernels in ``csrc/``.
 * :mod:`pollen_tpu_torch.flatgfa`, :mod:`pollen_tpu_torch.fileformat`,
   :mod:`pollen_tpu_torch.emit`, :mod:`pollen_tpu_torch.bed` — the arena,
   the GFA parser, the binary loader and writer, the GFA emitter and the
-  BED reader.
+  BED reader; :mod:`pollen_tpu_torch.packedseq` — packed nucleotide
+  files (``seq-export``, ``seq-import``).
 * :mod:`pollen_tpu_torch.synth` — seeded synthetic graphs.
 """
 

@@ -4,18 +4,21 @@ The grammar is the port's own copy of the reference CLI's
 (``pollen_tpu/cli.py`` ``build_parser``, ``_load``, ``_store``,
 ``_emit_transform``, ``_toc_text``, ``_read_lines`` and the command
 dispatch), every flag and default kept, so that every command line
-means what it means to ``fgfa-tpu``; ``--device`` is added. Served:
-the no-command conversion (``-I x.gfa -o y.flatgfa``, or the preserved
-GFA on stdout), ``paths``, ``norm``, ``toc``, ``stats``, ``depth`` (all
-forms: ``-d``, ``-s``, ``-S``, ``-r``, ``-b``), ``degree``,
-``matrix-adj``, ``flatten``, ``validate``, ``position``, ``overlap``,
-``window-depth``, ``bed-depth``, ``bed``, ``crush``, ``flip``,
-``chop`` and ``serve``, which answers any of them over one resident
-graph with the reference's framing (``##end\tok`` or
-``##end\terror\t<message>`` after each response). ``-o``, ``-O`` and
-``-m`` write what the reference writes. ``gaf``, ``matrix``,
-``pangenotype``, ``extract``, ``inject``, ``seq-export``,
-``seq-import`` and ``bench`` exit with "not ported yet".
+means what it means to ``fgfa-tpu``; ``--device`` is added. Every
+command of the reference is answered: the no-command conversion
+(``-I x.gfa -o y.flatgfa``, or the preserved GFA on stdout), ``paths``,
+``norm``, ``toc``, ``stats``, ``depth`` (all forms: ``-d``, ``-s``,
+``-S``, ``-r``, ``-b``), ``degree``, ``matrix-adj``, ``flatten``,
+``validate``, ``position``, ``overlap``, ``window-depth``,
+``bed-depth``, ``bed``, ``crush``, ``flip``, ``chop``, ``gaf`` (``-s``,
+``-b``; ``-p`` is accepted and ignored), ``matrix`` and ``pangenotype``
+(one command), ``extract`` (``-o``/``-O`` write the subgraph),
+``inject``, ``seq-export``, ``seq-import`` and ``bench --wcl`` (the
+last three before any graph is loaded), and ``serve``, which answers
+any of them but ``seq-*`` and ``bench`` over one resident graph with
+the reference's framing (``##end\tok`` or ``##end\terror\t<message>``
+after each response). ``-o``, ``-O`` and ``-m`` write what the
+reference writes.
 
 ``--device cuda|cpu`` (default ``cuda``) picks where the index lives and
 the queries run. A ``cuda`` run without a card is an error.
@@ -258,17 +261,8 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# Commands of the reference that the port does not answer yet, and the
-# ones that serve refuses (the reference's set).
-NOT_PORTED = frozenset(
-    ("gaf", "matrix", "pangenotype", "extract", "inject", "seq-export",
-     "seq-import", "bench")
-)
+# The commands serve refuses (the reference's set).
 NOT_SERVED = frozenset(("serve", "seq-export", "seq-import", "bench"))
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (see ROADMAP.md)")
 
 
 def _toc_text(g: GraphArrays, in_bytes: bool) -> str:
@@ -302,9 +296,25 @@ def main(
 def _main(argv, stdin: TextIO, out: TextIO) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command in NOT_PORTED:
-        raise _not_ported(f"command {args.command!r}")
     device = resolve_device(args.device)
+
+    # Sequence packing and the micro-benchmark need no graph at all.
+    if args.command == "seq-export":
+        from .packedseq import seq_export
+
+        seq_export(args.input, args.output)
+        return
+    if args.command == "seq-import":
+        from .packedseq import seq_import
+
+        out.write(seq_import(args.filename).decode() + "\n")
+        return
+    if args.command == "bench":
+        if args.wcl:
+            from .ops.bench import line_count
+
+            out.write(f"{line_count(args.wcl, args.parallel)}\n")
+        return
 
     # Pure GFA -> binary conversion: parse, then write (the reference's
     # native converter writes the same bytes).
@@ -364,8 +374,6 @@ def _serve(parser, args, g, device, stdin: TextIO, out: TextIO) -> None:
             qargs = parser.parse_args(shlex.split(line))
             if qargs.command in NOT_SERVED:
                 raise ValueError(f"command {qargs.command!r} is not served")
-            if qargs.command in NOT_PORTED:
-                raise _not_ported(f"command {qargs.command!r}")
             if qargs.input or qargs.input_gfa:
                 raise ValueError("serve requests cannot re-load graphs")
             _run_command(parser, qargs, g, device, out, make_dg)
@@ -411,6 +419,32 @@ def _run_command(parser, args, g: GraphArrays, device, out, make_dg) -> None:
         from .ops.transform import crush
 
         _emit_transform(args, out, crush(g), order="sorted")
+    elif args.command in ("pangenotype", "matrix"):
+        from .ops.gaf import run_pangenotype
+
+        out.write(run_pangenotype(g, args.gaf_files))
+    elif args.command == "extract":
+        from .ops.extract import extract
+
+        sub_g = extract(
+            g,
+            args.seg_name,
+            args.link_distance,
+            args.max_distance_subpaths,
+            args.max_merging_iterations,
+        )
+        # -o/-O write the subgraph, and the input is not stored after.
+        if not _store(args, sub_g):
+            out.write(emit_gfa(sub_g, order="normalized"))
+        return
+    elif args.command == "inject":
+        from .bed import parse_bed_file
+        from .ops.inject import inject
+
+        new_g = inject(g, parse_bed_file(args.bed))
+        _emit_transform(
+            args, out, new_g, order="sorted", include_links=False
+        )
     elif args.command == "bed":
         from .bed import parse_bed_file, run_bed_intersect
 
@@ -464,6 +498,13 @@ def _run_command(parser, args, g: GraphArrays, device, out, make_dg) -> None:
             from .ops.overlap import run_overlap
 
             out.write(run_overlap(g, dg, _read_lines(args.paths)))
+        elif args.command == "gaf":
+            from .ops.gaf import run_gaf_lookup_stream
+
+            for piece in run_gaf_lookup_stream(
+                g, dg, args.gaf_file, seqs=args.seqs, bench=args.bench
+            ):
+                out.write(piece)
         elif args.command == "window-depth":
             from .ops.window_depth import run_window_depth
 

@@ -242,7 +242,7 @@ def test_serve_answers_and_frames():
             "depth -d",
             f"depth -d -s {GOLDEN_DIR / 'tiny.depthpaths'}",
             "depth",
-            "gaf reads.gaf",  # a command still unported
+            "gaf reads.gaf",  # a GAF file that is not there
             "depth -S nowhere.txt",
             "no-such-command",
         ]
@@ -251,7 +251,7 @@ def test_serve_answers_and_frames():
         text = run_cli(["--device", "cpu", "-I", gfa, "serve"], requests)
     frames = [ln for ln in text.splitlines() if ln.startswith("##end")]
     assert frames[:3] == ["##end\tok"] * 3
-    assert frames[3].startswith("##end\terror\t") and "not ported" in frames[3]
+    assert frames[3].startswith("##end\terror\t") and "reads.gaf" in frames[3]
     assert frames[4].startswith("##end\terror\t") and "nowhere.txt" in frames[4]
     assert frames[5] == "##end\terror\tbad request"
     golden = (GOLDEN_DIR / "tiny.depth").read_text()
@@ -259,11 +259,17 @@ def test_serve_answers_and_frames():
 
 
 def test_cli_refuses_unported_and_missing_cuda(capsys):
+    """Every command is ported (nothing answers "not ported yet"); on a
+    machine with no card, ``--device cuda`` (the default) is an error
+    for ``fgfa-torch`` and ``exine-torch``, never a quiet CPU run."""
+    from pollen_tpu_torch.accel.__main__ import main as exine_main
+
     gfa = str(GRAPH_DIR / "tiny.gfa")
     with pytest.raises(SystemExit) as exc:
         run_cli(["--device", "cpu", "-I", gfa, "gaf", "reads.gaf"])
     assert exc.value.code == 1
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "reads.gaf" in err and "not ported" not in err
     if torch.cuda.is_available():
         return  # the rest checks a machine with no card
     with pytest.raises(SystemExit) as exc:
@@ -272,3 +278,7 @@ def test_cli_refuses_unported_and_missing_cuda(capsys):
     assert "no CUDA device" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         run_cli(["-I", gfa, "depth", "-d"])  # cuda is the default
+    with pytest.raises(SystemExit) as exc:
+        exine_main(["--device", "cuda", "depth", "-a", "-r", gfa])
+    assert exc.value.code == 1
+    assert "no CUDA device" in capsys.readouterr().err

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor anything of the JAX package: every
-module of ``pollen_tpu_torch`` and CLI runs (depth, degree, and flip
-with ``-O``) load in a fresh interpreter
+module of ``pollen_tpu_torch`` and CLI runs (depth, degree, flip with
+``-O``, ``gaf -b``, ``extract`` and ``exine-torch depth -a -r``) load
+in a fresh interpreter
 with ``jax`` and every ``pollen_tpu`` module absent from
 ``sys.modules`` (the machine with the card has no JAX installed), and
 no import statement of the port or of ``chip_smoke.py`` names them, nor
@@ -38,6 +39,18 @@ for argv, golden in (
     cli.main(["--device", "cpu", "-I", sys.argv[1], *argv], stdout=out)
     assert out.getvalue() == open(golden).read(), argv
 assert open(sys.argv[6]).read() == open(sys.argv[1]).read()
+for argv in (["-I", "examples/example.gfa", "gaf", "-b",
+              "examples/example.gaf"], ["-I", sys.argv[1], "extract", "-n",
+                                        "1", "-c", "1"]):
+    out = io.StringIO()
+    cli.main(["--device", "cpu", *argv], stdout=out)
+    assert out.getvalue(), argv
+import contextlib
+from pollen_tpu_torch.accel.__main__ import main as exine
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    exine(["--device", "cpu", "depth", "-a", "-r", sys.argv[1]])
+assert out.getvalue() == open(sys.argv[4]).read()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pollen_tpu", "bench",
                                        "probes"))
@@ -67,9 +80,9 @@ def test_port_imports_nothing_of_jax_or_pollen_tpu(tmp_path):
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # __main__, bed, cli, device, emit, fileformat, flatgfa, synth,
-    # kernels (+8), ops (+9), probes (+7)
-    assert int(proc.stdout.strip()) >= 20
+    # __main__, accel (+4), bed, cli, device, emit, fileformat, flatgfa,
+    # packedseq, synth, kernels (+8), ops (+13), probes (+7)
+    assert int(proc.stdout.strip()) >= 40
 
 
 SOURCES = sorted((REPO / "pollen_tpu_torch").rglob("*.py")) + [

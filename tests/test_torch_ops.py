@@ -433,31 +433,51 @@ def test_serve_answers_every_command_as_the_reference(stem, tmp_path,
     assert got.count("##end\tok\n") == len(requests) - 5
 
 
-def test_unported_commands_exit_not_ported(tmp_path, capsys):
-    """gaf, matrix, pangenotype, extract, inject, seq-* and bench exit 1
-    with "not ported yet" before anything is read or written; serve
-    answers them with an error frame and keeps serving."""
+def test_unported_commands_exit_not_ported(tmp_path):
+    """The eight command lines that once exited "not ported yet" (gaf,
+    matrix, pangenotype, extract, inject, seq-*, bench) now answer as
+    the reference does, stdout and ``-o`` file alike: the input graph
+    stored after gaf, matrix, pangenotype and inject, the subgraph after
+    extract, nothing after seq-* and bench (they load no graph); serve
+    answers the first five and refuses bench, as the reference's."""
+    from pollen_tpu_torch.synth import synth_gaf
+
     gfa = str(GRAPH_DIR / "tiny.gfa")
     bed = str(GOLDEN_DIR / "tiny.bed")
-    out_file = tmp_path / "out.flatgfa"
+    gaf = tmp_path / "reads.gaf"
+    gaf.write_bytes(synth_gaf(parse_gfa((GRAPH_DIR / "tiny.gfa")
+                                        .read_bytes()), 30, seed=3))
+    seq = tmp_path / "bases.txt"
+    seq.write_text("ACGTTGCA\nAC\n")
+    packed = tmp_path / "bases.packedseq"
+    packed.write_bytes(bytes.fromhex(
+        (GOLDEN_DIR / "tiny.packedseq.hex").read_text().strip()))
     for argv in (
-        ["gaf", "x.gaf"],
-        ["matrix", "x.gaf"],
-        ["pangenotype", "x.gaf"],
+        ["gaf", str(gaf)],
+        ["matrix", str(gaf)],
+        ["pangenotype", str(gaf)],
         ["extract", "-n", "1", "-c", "1"],
         ["inject", "--bed", bed],
-        ["seq-export", "a", "b"],
-        ["seq-import", "a"],
+        ["seq-export", str(seq), str(tmp_path / "{who}.ps")],
+        ["seq-import", str(packed)],
         ["bench", "--wcl", gfa],
     ):
-        with pytest.raises(SystemExit) as exc:
-            port_run(["-I", gfa, "-o", str(out_file), *argv])
-        assert exc.value.code == 1, argv
-        assert "not ported yet" in capsys.readouterr().err, argv
-        assert not out_file.exists()
-    text = port_run(["-I", gfa, "serve"],
-                    f"inject --bed {bed}\ngaf x.gaf\nmatrix x.gaf\ndepth -d\n")
-    frames = [ln for ln in text.splitlines() if ln.startswith("##end")]
-    assert frames[3] == "##end\tok"
-    assert all(f.startswith("##end\terror\t") and "not ported yet" in f
-               for f in frames[:3])
+        outs = []
+        for run, who in ((port_run, "port"), (ref_run, "ref")):
+            out_file = tmp_path / f"{argv[0]}.{who}.flatgfa"
+            line = [a.format(who=who) for a in argv]
+            text = run(["-I", gfa, "-o", str(out_file), *line])
+            stored = out_file.read_bytes() if out_file.exists() else None
+            exported = tmp_path / f"{who}.ps"
+            outs.append((text, stored, exported.exists()
+                         and exported.read_bytes()))
+        assert outs[0] == outs[1], argv
+        assert outs[0][0] or argv[0] in ("extract", "seq-export"), argv
+        assert (outs[0][1] is None) == (argv[0] in ("seq-export",
+                                                    "seq-import", "bench"))
+    requests = (f"inject --bed {bed}\ngaf {gaf}\nmatrix {gaf}\n"
+                f"pangenotype {gaf}\nextract -n 1 -c 1\nbench\ndepth -d\n")
+    text = port_run(["-I", gfa, "serve"], requests)
+    assert text == ref_run(["-I", gfa, "serve"], requests)
+    assert text.count("##end\tok\n") == 6
+    assert "##end\terror\tcommand 'bench' is not served" in text
