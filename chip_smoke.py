@@ -108,12 +108,28 @@ and a numpy formula, exact, times each as the graph commands' ops
 into load, ingest, parse and chunk), ``gaf``, ``pangenotype``,
 ``bench --wcl``, ``seq-*``, ``inject`` and ``extract`` end to end.
 
+The library surfaces run last (phase 4), at chr8_third on the card:
+the object API (``save_flatgfa``, ``pollen_tpu_torch.load``, spot
+checks, ``g.device()``'s ingest under ``profiling.stopwatch``, the
+routed query, route "ell" and fused K1, under three seeded masks
+against numpy's bincount and phase 3's index, timed by
+``profiling.time_best`` and ``cuda_ms``, traced by
+``profiling.device_trace``; ``g.all_reads`` over the 2^20-read GAF,
+its first 10,000 ``GAFLine``s against ``numpy_chunker``), a
+three-command ``flash-torch -O`` script (``odgi depth -d``, path
+length into 100 kb windows, interval depth over them) through the
+console script on cuda and on the CPU, the same bytes, its ``-d``
+table that of ``fgfa-torch depth -d``, and ``entry("cuda")`` (its
+forward, then the routed query on its graph: route "cross", K2). Its
+numbers are the ``{"api_shell": ...}`` line.
+
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
 batch: phase 2's ``-S`` requests and phase 3's batches; the scan
 family: its phase 2 requests and phase 3 queries and batches; the flat
-ELL path; the probe path) and read right after it: every kernel must
-have been launched by its path. Each kernel's time is its CUDA-event
+ELL path; the probe path; phase 4's API queries, K1, and its entry,
+K2) and read right after it: every kernel must have been launched by
+its path. Each kernel's time is its CUDA-event
 wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
 wall, its bound and its library call (wall and replay): one PyTorch
@@ -135,8 +151,10 @@ from __future__ import annotations
 import functools
 import io
 import json
+import logging
 import os
 import pathlib
+import signal
 import statistics
 import subprocess
 import sys
@@ -2967,7 +2985,7 @@ def timed(e2e: dict, key: str, fn):
     return out
 
 
-def phase_gaf_ops(graphs: dict, card: str) -> list:
+def phase_gaf_ops(graphs: dict, card: str, kept: dict) -> list:
     """Phase 3 (the rest of the CLI) at chr8_third: ``chunk_reads`` over
     a seeded GAF of 2^20 long reads (sub-walks of 1-31 steps) and
     ``node_depth_accel`` on seeded memories (N = 2^16, E = 64, P = 128),
@@ -2979,7 +2997,8 @@ def phase_gaf_ops(graphs: dict, card: str) -> list:
     ``bench --wcl [-p]`` over the 2^20-read file, ``seq-export`` and
     ``seq-import`` over 16 MiB of bases, ``inject`` (the library call at
     chr8_third, the CLI at bench with links) and ``extract`` at the
-    unfused graph."""
+    unfused graph. The 2^20-read GAF is left in ``kept["gaf"]`` for the
+    API phase."""
     import numpy as np
     import torch
 
@@ -3001,6 +3020,7 @@ def phase_gaf_ops(graphs: dict, card: str) -> list:
     t0 = time.perf_counter()
     reads = gaf_op.parse_gaf(data, g.seg_id_by_name())
     parse_s = time.perf_counter() - t0
+    kept["gaf"] = data
     t, r = reads.steps.shape[0], reads.num_reads
     print(f"chr8_third GAF: {r} reads, {t} read steps, {len(data)} bytes "
           f"(made in {made_s:.3f} s, parsed whole in {parse_s:.3f} s)",
@@ -3184,6 +3204,324 @@ def phase_gaf_ops(graphs: dict, card: str) -> list:
     return rows
 
 
+# Phase 4's traced query, in a process of its own: argv = the checkout,
+# the .flatgfa file, the trace directory.
+TRACE_CHILD = r"""
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import pollen_tpu_torch
+from pollen_tpu_torch import profiling
+from pollen_tpu_torch.ops.depth import masked_seg_depth
+g = pollen_tpu_torch.load(sys.argv[2])
+dg = g.device()
+mask = torch.arange(g.arrays.num_paths) % 2 == 0
+masked_seg_depth(dg, mask)
+with profiling.device_trace(sys.argv[3]):
+    masked_seg_depth(dg, mask)
+"""
+
+
+class _Messages(logging.Handler):
+    """Keeps the messages of a logger, and prints them."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+        print(f"  {record.name}: {record.getMessage()}", flush=True)
+
+
+def api_reads_expected(g, reads, n):
+    """Each of the first ``n`` reads' (name, chunk ranges, sequence), from
+    ``numpy_chunker`` and the segments' bytes: what ``GAFLine`` and
+    ``ChunkEvent`` must say (flatgfa-py's range encoding: skipped (1, 0),
+    whole (0, len - 1))."""
+    import numpy as np
+
+    hi = int(reads.read_bounds[n])
+    steps = reads.steps[:hi]
+    seg_len = g.seg_len  # a property: computed over all segments
+    kind, a, b = numpy_chunker(seg_len, steps, reads.read_bounds[: n + 1],
+                               reads.start[:n], reads.end[:n])
+    comp = bytes.maketrans(b"ACGTN", b"TGCAN")
+    out = []
+    for r in range(n):
+        lo, up = int(reads.read_bounds[r]), int(reads.read_bounds[r + 1])
+        ranges, seq = [], []
+        for i in range(lo, up):
+            seg = int(steps[i] >> 1)
+            if kind[i] == 0:
+                ranges.append((1, 0))
+                continue
+            text = g.seg_sequence(seg)
+            if steps[i] & 1:
+                text = text.translate(comp)[::-1]
+            if kind[i] == 1:
+                ranges.append((0, int(seg_len[seg]) - 1))
+            else:
+                ranges.append((int(a[i]), int(b[i])))
+                text = text[int(a[i]):int(b[i])]
+            seq.append(text.decode())
+        out.append((reads.read_name(r).decode(), ranges, "".join(seq)))
+    return out
+
+
+def phase_api_shell(graphs: dict, gaf: bytes, card: str) -> dict:
+    """Phase 4: the library API, the shell and the entry at chr8_third, on
+    the card. ``save_flatgfa`` then ``pollen_tpu_torch.load`` (mmap,
+    device cuda by default), spot-checked against the arena;
+    ``g.device()`` (ingest, logged by ``profiling.stopwatch``) and the
+    routed query (``ell``, fused K1) under three seeded masks against
+    numpy's bincount and phase 3's index, timed by ``profiling.time_best``
+    and ``cuda_ms`` (within 2x of each other) and traced once under
+    ``profiling.device_trace`` in a process of its own (its Chrome trace
+    must hold a K1 kernel event); ``g.all_reads`` over the 2^20-read GAF (``chunk_reads`` on
+    the card), the first 10,000 ``GAFLine``s against ``numpy_chunker``;
+    a three-command ``flash-torch -O`` script (``depth -d``; p0's length
+    into 100 kb windows redirected to ``win.bed``; interval depth over
+    ``win.bed``; -O maps the binary once and keeps the windows in memory,
+    so ``win.bed`` is never written) run through the console script on
+    cuda and on the CPU, the same bytes, its ``-d`` table that of
+    ``fgfa-torch depth -d``, its interval rows p0's windows; then
+    ``entry("cuda")``'s forward and the routed query on its graph
+    (``cross``, K2). Launch counts: reset before the API queries and
+    read after them (K1), and again around the entry (K2)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    import pollen_tpu_torch
+    from pollen_tpu_torch import profiling
+    from pollen_tpu_torch.entry import entry
+    from pollen_tpu_torch.fileformat import save_flatgfa
+    from pollen_tpu_torch.ops.depth import (
+        _best_masked_impl, masked_seg_depth,
+    )
+    from pollen_tpu_torch.scripts import script_env
+    from pollen_tpu_torch.shell import optimize, shell_to_ir
+
+    g8, dg8, reference = graphs["chr8_third"]
+    p = g8.num_paths
+    out = {}
+    keep = _Messages()
+    logger = logging.getLogger("pollen_tpu_torch")
+    logger.addHandler(keep)
+    logger.setLevel(logging.INFO)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        flat = tmp / "chr8_third.flatgfa"
+        t0 = time.perf_counter()
+        save_flatgfa(str(flat), g8)
+        out["save_flatgfa_s"] = time.perf_counter() - t0
+
+        # 1. Load (mmap) and spot-check.
+        g = pollen_tpu_torch.load(str(flat))
+        need(g.torch_device == "cuda", "load: device is not cuda by default")
+        need(len(g.segments) == g8.num_segments and len(g.paths) == p
+             and len(g.links) == g8.num_links, "load: entity counts differ")
+        for i in (0, g8.num_segments // 2, g8.num_segments - 1):
+            seg = g.segments[i]
+            need(seg.name == int(g8.seg_name[i])
+                 and seg.sequence() == g8.seg_sequence(i)
+                 and len(seg) == int(g8.seg_len[i]), f"segment {i} differs")
+        need(g.segments.find(int(g8.seg_name[-1])).id == g8.num_segments - 1,
+             "segments.find differs")
+        lo, hi = (int(x) for x in g8.path_steps[0])
+        path0 = g.paths[0]
+        need(path0.name == g8.path_name_bytes(0) and len(path0) == hi - lo,
+             "paths[0] differs")
+        head = [(h.seg_id, h.is_forward) for h in path0[:1000]]
+        want = [(int(s >> 1), not (s & 1)) for s in g8.steps[lo:lo + 1000]]
+        need(head == want and path0[-1].seg_id == int(g8.steps[hi - 1] >> 1),
+             "paths[0]'s steps differ")
+        need(g.paths.find(g8.path_name_bytes(p - 1)).id == p - 1,
+             "paths.find differs")
+
+        # 2. Ingest and the routed single query (fused K1).
+        with profiling.stopwatch("API ingest, g.device() at chr8_third"):
+            dg = g.device()
+            torch.cuda.synchronize()
+        out["api_ingest_s"] = float(keep.messages[-1].rsplit(": ", 1)[1]
+                                    .split()[0])
+        need(g.device() is dg, "g.device() is not cached")
+        need(dg.device.type == "cuda", "g.device() is not on the card")
+        pick = _best_masked_impl(dg)
+        need(pick == "ell" and plan_of(dg)["fused"],
+             f"API index routes {pick!r}, plan {plan_of(dg)}")
+        rng = np.random.default_rng(11)
+        masks = [rng.random(p) < f for f in (0.5, 0.25, 0.75)]
+        reset_launches()
+        answers = [masked_seg_depth(dg, torch.from_numpy(m)) for m in masks]
+        api_counts = launch_counts()
+        need(api_counts["ell_splitn"] == len(masks),
+             f"API queries: launches {api_counts}, expected "
+             f"{len(masks)} of ell_splitn (K1)")
+        for i, (m, (d, u)) in enumerate(zip(masks, answers)):
+            d_np, u_np = reference(m)
+            d3, u3 = masked_seg_depth(dg8, torch.from_numpy(m))
+            need(np.array_equal(d, d_np) and np.array_equal(u, u_np),
+                 f"API query mask {i}: differs from numpy's bincount")
+            need(np.array_equal(d, d3) and np.array_equal(u, u3),
+                 f"API query mask {i}: differs from phase 3's index")
+        mt = torch.from_numpy(masks[0])
+        best_ms = profiling.time_best(masked_seg_depth, dg, mt, reps=10) * 1e3
+        event_ms = cuda_ms(lambda: masked_seg_depth(dg, mt))
+        out.update(query_time_best_ms=best_ms, query_cuda_ms=event_ms)
+        print(f"API query at chr8_third (route ell, K1) [{card}]: time_best "
+              f"{best_ms:.3f} ms, cuda_ms {event_ms:.3f} ms (each a routed "
+              "call: mask upload, K1, residual, host un-permute)", flush=True)
+        need(0.5 <= best_ms / event_ms <= 2.0,
+             f"time_best {best_ms:.3f} ms and cuda_ms {event_ms:.3f} ms "
+             "differ by more than 2x")
+        # The trace is taken in a process of its own, where it is the
+        # first torch.profiler session: on the card's machine, CPU + CUDA
+        # sessions after a process's first lost their kernel records
+        # (CUDA-only sessions kept them). It runs beside the reads' host
+        # parse below.
+        traces = tmp / "trace"
+        tracer = subprocess.Popen(
+            [sys.executable, "-c", TRACE_CHILD, str(REPO), str(flat),
+             str(traces)], stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+
+        # 3. Reads: all_reads over the 2^20-read GAF.
+        gaf_path = tmp / "reads.gaf"
+        gaf_path.write_bytes(gaf)
+        t0 = time.perf_counter()
+        parser = g.all_reads(str(gaf_path))
+        out["all_reads_s"] = time.perf_counter() - t0
+        n = 10_000
+        t0 = time.perf_counter()
+        got = [(line.name, [c.range for c in line], line.sequence())
+               for line in itertools.islice(parser, n)]
+        out["gaflines_10000_s"] = time.perf_counter() - t0
+        need(len(got) == n, f"all_reads: {len(got)} lines")
+        need(got == api_reads_expected(g8, parser._reads, n),
+             "all_reads: the first 10,000 GAFLines differ from numpy_chunker")
+        print(f"all_reads at chr8_third [{card}]: {parser._reads.num_reads} "
+              f"reads in {out['all_reads_s']:.3f} s (whole-file parse and "
+              f"chunk_reads on the card); the first {n} GAFLines in "
+              f"{out['gaflines_10000_s']:.3f} s, equal to numpy_chunker",
+              flush=True)
+        del parser
+        child_out = tracer.communicate(timeout=300)[0].decode()
+        need(tracer.returncode == 0, f"device_trace process: {child_out}")
+        (trace,) = list(traces.iterdir())
+        events = json.loads(trace.read_text())["traceEvents"]
+        k1 = [e for e in events if str(e.get("cat", "")).lower() == "kernel"
+              and "ell_splitn" in str(e.get("name", ""))]
+        cats = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        need(len(k1) == 1, f"device_trace: {len(k1)} ell_splitn kernel "
+             f"events in {trace.name} ({len(events)} events by category "
+             f"{cats})")
+        out["trace_events"] = len(events)
+        print(f"device_trace (its own process, API load, g.device(), one "
+              f"warm query, then one traced): {trace.name}, {len(events)} "
+              f"events, K1 as {k1[0]['name']!r} ({k1[0].get('dur')} us)",
+              flush=True)
+
+        # 4. The shell: one script, -O maps chr8_third.flatgfa (the .gfa
+        # text is never written: a failed substitution fails to open it).
+        gfa, win = tmp / "chr8_third.gfa", tmp / "win.bed"
+        script = tmp / "chr8_third.sh"
+        script.write_text(
+            f"odgi depth -i {gfa} -d\n"
+            f"odgi depth -i {gfa} -r p0 | bedtools makewindows -b /dev/stdin"
+            f" -w 100000 > {win}\n"
+            f"odgi depth -i {gfa} -b {win}\n")
+        env = dict(script_env(), PYTHONFAULTHANDLER="1")
+
+        def flash(*args):
+            """``flash-torch`` in a process of its own: (stdout, seconds).
+            Past 300 s it gets SIGABRT, so that its traceback shows where
+            it stood, and the phase fails."""
+            print(f"  flash-torch {' '.join(args[:-1])} ...", flush=True)
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(["flash-torch", *args], cwd=tmp, env=env,
+                                    stdin=subprocess.DEVNULL,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.send_signal(signal.SIGABRT)
+                stdout, stderr = proc.communicate()
+            secs = time.perf_counter() - t0
+            need(proc.returncode == 0, f"flash-torch {args}: exit "
+                 f"{proc.returncode} after {secs:.1f} s: "
+                 f"{stderr.decode()[-4000:]}")
+            return stdout, secs
+
+        # -O maps the binary once, reduces the path depth to its length
+        # and elides the BED file's round trip: the windows go to the
+        # interval depth in memory and win.bed is never written (the IR
+        # that ``flash-torch -O -p`` prints).
+        ir = optimize(shell_to_ir(script.read_text())).render()
+        need("parse-gfa" not in ir and ir.count("map-file") == 1
+             and "path-length" in ir and "make-windows" in ir
+             and "parse-bed" not in ir and "win.bed" not in ir,
+             f"flash-torch -O: unexpected IR\n{ir}")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            stdout, secs = flash("-O", "--device", device, str(script))
+            need(not win.exists(), "flash-torch -O wrote win.bed")
+            runs[device] = stdout
+            out[f"flash_{device}_s"] = secs
+        need(runs["cuda"] == runs["cpu"],
+             "flash-torch: the cuda and cpu runs' stdout differ")
+        t0 = time.perf_counter()
+        d_table = run_cli(["--device", "cuda", "-i", str(flat), "depth",
+                           "-d"]).encode()
+        out["fgfa_depth_d_s"] = time.perf_counter() - t0
+        stdout = runs["cuda"]
+        need(stdout.startswith(d_table), "flash-torch's -d table differs "
+             "from fgfa-torch depth -d")
+        # The interval rows: p0's 100 kb windows over its whole length.
+        steps0 = g8.path_step_slice(g8.path_id_by_name(b"p0"))
+        p0_bp = int(g8.seg_len[(steps0 >> 1).astype(np.int64)].sum())
+        starts = range(0, p0_bp, 100000)
+        rest = stdout[len(d_table):].decode().split("\n")
+        rows = [r.split("\t")[:3] for r in rest[1:-1]]
+        need(rest[0] == "#path\tstart\tend\tmean.depth" and rest[-1] == ""
+             and rows == [["p0", str(a), str(min(a + 100000, p0_bp))]
+                          for a in starts],
+             f"flash-torch interval depth: {len(rows)} rows, p0 is {p0_bp} "
+             "bp")
+        n_win = len(rows)
+        print(f"flash-torch -O at chr8_third [{card}]: cuda run "
+              f"{out['flash_cuda_s']:.3f} s, cpu run {out['flash_cpu_s']:.3f}"
+              f" s (each a process: start-up, mmap, one ingest, -d table, "
+              f"{n_win} windows, interval depth); fgfa-torch depth -d in "
+              f"process {out['fgfa_depth_d_s']:.3f} s", flush=True)
+        del g, dg
+
+    # 5. The entry on the card: forward, then the routed query (K2).
+    reset_launches()
+    forward, (dge, mask) = entry("cuda")
+    depth, uniq = forward(dge, mask)
+    need(depth.is_cuda and depth.tolist() == [2, 3, 1, 1]
+         and uniq.tolist() == [2, 2, 1, 1],
+         f"entry: depth {depth.tolist()}, uniq {uniq.tolist()}")
+    pick = _best_masked_impl(dge)
+    d_r, u_r = masked_seg_depth(dge, mask)
+    entry_counts = launch_counts()
+    need(pick == "cross" and entry_counts["cross"] == 1,
+         f"entry's graph: route {pick!r}, launches {entry_counts}")
+    need(d_r.tolist() == [2, 3, 1, 1] and u_r.tolist() == [2, 2, 1, 1],
+         "entry's graph: the routed query differs from the forward")
+    logger.removeHandler(keep)
+    print(f"entry('cuda'): forward depth {depth.tolist()}, uniq "
+          f"{uniq.tolist()}; masked_seg_depth (route cross) equal", flush=True)
+    out["launches"] = {"api queries": api_counts, "entry": entry_counts}
+    return out
+
+
 def main() -> int:
     if not (REPO / "pollen_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -3278,8 +3616,15 @@ def main() -> int:
     stamp("flat-ELL and probe timing done")
     device_ops = phase_graph_ops(graphs, card)
     stamp("graph-command ops at scale done")
-    device_ops += phase_gaf_ops(graphs, card)
+    kept: dict = {}
+    device_ops += phase_gaf_ops(graphs, card, kept)
     stamp("the rest of the CLI at scale done")
+    api = phase_api_shell(graphs, kept.pop("gaf"), card)
+    for name, key, path in (("ell_splitn (K1)", "ell_splitn", "api queries"),
+                            ("cross (K2)", "cross", "entry")):
+        need(api["launches"][path][key] > 0,
+             f"{name} was never launched by the {path}")
+    stamp("the library API, the shell and the entry at chr8_third done")
     rows = [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=launches[name], max_abs_err=errs.max[name],
@@ -3288,6 +3633,7 @@ def main() -> int:
     ]
     stamp("total")
     print(json.dumps({"device_ops": device_ops}))
+    print(json.dumps({"api_shell": api}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,11 @@ and the CLI grammars are the port's own copies.
 
 Modules, from the entry point down:
 
+* :mod:`pollen_tpu_torch.api` — the object API (``FlatGFA``,
+  ``parse``, ``parse_bytes``, ``load``; ``device`` selects where the
+  index is built).
+* :mod:`pollen_tpu_torch.shell` — ``flash-torch``: the shell DSL, its
+  IR, optimizer and evaluator.
 * :mod:`pollen_tpu_torch.cli` — ``fgfa-torch``: every command of
   ``fgfa-tpu``, ``-o``/``-O``/``-m``, and ``serve``.
 * :mod:`pollen_tpu_torch.accel` — ``exine-torch``: the fixed-dimension
@@ -26,11 +31,18 @@ Modules, from the entry point down:
   the GFA parser, the binary loader and writer, the GFA emitter and the
   BED reader; :mod:`pollen_tpu_torch.packedseq` — packed nucleotide
   files (``seq-export``, ``seq-import``).
-* :mod:`pollen_tpu_torch.synth` — seeded synthetic graphs.
+* :mod:`pollen_tpu_torch.synth` — seeded synthetic graphs;
+  :mod:`pollen_tpu_torch.profiling` — wall-time logging, torch.profiler
+  traces and a synchronized best-of timer; :mod:`pollen_tpu_torch.entry`
+  — the masked-depth forward on a tiny graph;
+  :mod:`pollen_tpu_torch.scripts` — the console scripts from a bare
+  checkout.
 """
 
 __version__ = "0.1.0"
 
-# The arena and the GFA parser, as the reference package exports them at
-# its top level.
+# The object API, the arena and the GFA parser, as the reference package
+# exports them at its top level. None of these imports torch: spawned
+# GAF parse workers import this package.
+from .api import FlatGFA, load, parse, parse_bytes  # noqa: F401,E402
 from .flatgfa import GraphArrays, parse_gfa, parse_gfa_file  # noqa: F401,E402

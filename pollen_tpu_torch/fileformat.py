@@ -229,3 +229,10 @@ def load_flatgfa(filename: str) -> GraphArrays:
         m = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
     pools, _ = read_pools(memoryview(m))
     return _arena_from_pools(pools)
+
+
+def load_flatgfa_bytes(data: bytes) -> GraphArrays:
+    """An arena over a FlatGFA file's bytes held in memory (views alias
+    ``data``)."""
+    pools, _ = read_pools(memoryview(data))
+    return _arena_from_pools(pools)

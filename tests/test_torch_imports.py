@@ -1,7 +1,10 @@
 """The port imports neither JAX nor anything of the JAX package: every
-module of ``pollen_tpu_torch`` and CLI runs (depth, degree, flip with
-``-O``, ``gaf -b``, ``extract`` and ``exine-torch depth -a -r``) load
-in a fresh interpreter
+module of ``pollen_tpu_torch`` (the object API, the shell, the console
+scripts, profiling and the entry among them), CLI runs (depth, degree,
+flip with ``-O``, ``gaf -b``, ``extract`` and ``exine-torch depth -a
+-r``), the API (``parse``, ``device()``, ``all_reads``), a
+``flash-torch`` program, profiling and ``entry`` load in a fresh
+interpreter
 with ``jax`` and every ``pollen_tpu`` module absent from
 ``sys.modules`` (the machine with the card has no JAX installed), and
 no import statement of the port or of ``chip_smoke.py`` names them, nor
@@ -28,6 +31,10 @@ names = [m.name for m in pkgutil.walk_packages(
     pollen_tpu_torch.__path__, "pollen_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("api", "entry", "profiling", "scripts", "shell",
+             "shell.__main__", "shell.evaluate", "shell.ir", "shell.opt",
+             "shell.parse"):
+    assert "pollen_tpu_torch." + name in names, name
 from pollen_tpu_torch import cli
 for argv, golden in (
     (["depth", "-d", "-s", sys.argv[2]], sys.argv[3]),
@@ -51,6 +58,23 @@ out = io.StringIO()
 with contextlib.redirect_stdout(out):
     exine(["--device", "cpu", "depth", "-a", "-r", sys.argv[1]])
 assert out.getvalue() == open(sys.argv[4]).read()
+import tempfile
+g = pollen_tpu_torch.parse("examples/example.gfa", device="cpu")
+assert g.device().device.type == "cpu"
+assert len(list(g.all_reads("examples/example.gaf"))) > 0
+from pollen_tpu_torch.shell import optimize, run_program, shell_to_ir
+prog = optimize(shell_to_ir("odgi depth -i " + sys.argv[1] + " -d"))
+assert run_program(prog, device="cpu").decode() == open(sys.argv[4]).read()
+from pollen_tpu_torch import profiling
+from pollen_tpu_torch.entry import entry
+from pollen_tpu_torch.scripts import script_env
+forward, args = entry("cpu")
+with tempfile.TemporaryDirectory() as tmp, profiling.device_trace(tmp):
+    with profiling.stopwatch("entry"):
+        assert forward(*args)[0].tolist() == [2, 3, 1, 1]
+assert profiling.time_best(forward, *args, reps=1) >= 0
+import shutil
+assert shutil.which("flash-torch", path=script_env()["PATH"])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pollen_tpu", "bench",
                                        "probes"))
@@ -80,9 +104,10 @@ def test_port_imports_nothing_of_jax_or_pollen_tpu(tmp_path):
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    # __main__, accel (+4), bed, cli, device, emit, fileformat, flatgfa,
-    # packedseq, synth, kernels (+8), ops (+13), probes (+7)
-    assert int(proc.stdout.strip()) >= 40
+    # __main__, accel (+4), api, bed, cli, device, emit, entry,
+    # fileformat, flatgfa, packedseq, profiling, scripts, synth, kernels
+    # (+8), ops (+13), probes (+7), shell (+6)
+    assert int(proc.stdout.strip()) >= 50
 
 
 SOURCES = sorted((REPO / "pollen_tpu_torch").rglob("*.py")) + [
