@@ -123,12 +123,46 @@ table that of ``fgfa-torch depth -d``, and ``entry("cuda")`` (its
 forward, then the routed query on its graph: route "cross", K2). Its
 numbers are the ``{"api_shell": ...}`` line.
 
+Phase 5 adds the native host code, the spec oracle, the permuted ELL
+query and the two newer probes. The native library
+(``pollen_tpu_torch/native``) must build with ``POLLEN_NATIVE`` unset
+(no hidden fallback; a failed build fails the phase with the
+compiler's message). On the 8 fixtures its parse equals the NumPy
+parser's field by field under ``POLLEN_SCAN_THREADS`` = 1 and the
+default, its emit (to a string and a file) the NumPy emit and the
+input, its converter parse + ``save_flatgfa``; the C API's
+``example.c``, built against the port's copies, passes
+tests/test_capi.py's assertions. bench and chr8_third with links are
+written as GFA text (seeded ACGT bases); the parse (native against NumPy
+at bench), the emit to a string and to a file (at bench) and the
+conversion (``convert_gfa_native`` and ``fgfa-torch --device cuda -I
+-o`` end to end) are timed with the text's bytes and MB/s, each pair
+equal. The spec oracle: ``fgfa-torch --device cuda`` runs ``depth -d``,
+``depth -d -s``, ``degree``, ``matrix-adj``, ``flatten``, ``overlap``,
+``validate``, ``crush``, ``flip``, ``chop -c 1`` and ``-c 4`` on seeded
+``tests/graphgen.py`` graphs (tests/test_random_parity.py's seeds 11-13
+and two larger), each byte for byte against
+``pollen_tpu_torch.spec.commands``, and ``pollen-spec-torch``
+reproduces the fixtures' goldens. ``seg_depth_with_uniq_ell_permuted``
+runs as a path of its own on bench, chr8_third and unfused under 8
+masks each (launch counts reset before each graph: K1, or K3 and K2),
+equal to the kernels' parts composed on the host, and un-permuted to
+the plain path and numpy; one call is timed against the host-composed
+``seg_depth_with_uniq_ell``. Then ``ell_probe``'s ``ellok``,
+``ellbok`` and ``ellp16ok`` report diff 0 at bench and on a heavy-free
+graph, ``ellp16`` times pack16 there, ``ellcal`` gives the K3 and K2
+calibration points and fits, and ``ellraw``, ``scanb``, ``runsk``,
+``scatter`` and ``transform_probe``'s ``chop`` and ``crush`` run at
+bench. K1-K4 and K6-K8 must be launched by this phase. Its numbers are
+the ``{"native_spec_probes": ...}`` line.
+
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
 batch: phase 2's ``-S`` requests and phase 3's batches; the scan
 family: its phase 2 requests and phase 3 queries and batches; the flat
 ELL path; the probe path; phase 4's API queries, K1, and its entry,
-K2) and read right after it: every kernel must have been launched by
+K2; phase 5's permuted query on each graph, and its probes) and read
+right after it: every kernel must have been launched by
 its path. Each kernel's time is its CUDA-event
 wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
@@ -160,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 REPO = pathlib.Path(__file__).resolve().parent
 SRC = "pollen_tpu_torch/csrc/depth.cu"
@@ -3522,6 +3557,549 @@ def phase_api_shell(graphs: dict, gaf: bytes, card: str) -> dict:
     return out
 
 
+# --- phase 5: the native host code, the spec oracle, the permuted ELL
+# query and the ELL and transform probes ---------------------------------
+
+# Seeded tests/graphgen.py graphs of the spec phase: seed -> (segments,
+# paths, N fraction, walk length). 11-13 are tests/test_random_parity.py's.
+SPEC_GRAPHS = {
+    11: (35, 7, 0.15, 30),
+    12: (35, 7, 0.15, 30),
+    13: (35, 7, 0.15, 30),
+    21: (400, 16, 0.1, 200),
+    22: (1000, 24, 0.1, 500),
+}
+# (fgfa-torch arguments after -I, the same command's spec CLI arguments
+# before the graph): "{paths}" is a file of every path, "{half}" one of
+# every other path.
+SPEC_COMMANDS = (
+    (("depth", "-d"), ("depth",)),
+    (("depth", "-d", "-s", "{half}"), ("depth", "--paths", "{half}")),
+    (("degree",), ("degree",)),
+    (("matrix-adj",), ("matrix",)),
+    (("flatten",), ("flatten",)),
+    (("overlap", "--paths", "{paths}"), ("overlap", "--paths", "{paths}")),
+    (("validate",), ("validate",)),
+    (("crush",), ("crush",)),
+    (("flip",), ("flip",)),
+    (("chop", "-c", "1"), ("chop", "-n", "1")),
+    (("chop", "-c", "4"), ("chop", "-n", "4")),
+)
+# The heavy-free graph of the probe phase: steps over segments uniformly
+# (mean 8 runs a segment), planned at tiers of 4, 16 and 32 slots.
+HEAVY_FREE = (2**22, 2**19, 128)
+HEAVY_FREE_KS = (4, 16, 32)
+
+
+def same_arrays(a, b) -> list:
+    """Names of the arena fields where ``a`` and ``b`` differ."""
+    import dataclasses
+
+    import numpy as np
+
+    return [f.name for f in dataclasses.fields(a)
+            if not np.array_equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+def text_arena(g, seed=8):
+    """``g`` ready to print as GFA and read back unchanged: seeded ACGT
+    sequence bytes (the synthesis leaves them zero), a line order of its
+    segments, then its paths, then its links, and each link's overlap
+    the one CIGAR op that GFA's ``0M`` reads as (count 0, op M = code 0;
+    the paths' overlaps ``*``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from pollen_tpu_torch.flatgfa import LINE_LINK, LINE_PATH, LINE_SEGMENT
+
+    rng = np.random.default_rng(seed)
+    seq = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, g.seq_data.shape[0])
+    ]
+    order = np.concatenate([
+        np.full(g.num_segments, LINE_SEGMENT, np.uint8),
+        np.full(g.num_paths, LINE_PATH, np.uint8),
+        np.full(g.num_links, LINE_LINK, np.uint8),
+    ])
+    nl = g.num_links
+    spans = np.stack([np.arange(nl), np.arange(nl) + 1], 1).astype(np.uint32)
+    return dataclasses.replace(
+        g, seq_data=seq, line_order=order, link_overlap=spans, overlaps=spans,
+        alignment=np.zeros(nl, np.uint32),
+        path_overlaps=np.full((g.num_paths, 2), nl, np.uint32),
+    )
+
+
+def numpy_emit(g) -> str:
+    """The NumPy emitter's preserved-order text (the native path off)."""
+    from pollen_tpu_torch.emit import emit_gfa
+
+    with mock.patch.dict(os.environ, {"POLLEN_NATIVE": "0"}):
+        return emit_gfa(g, order="preserved")
+
+
+def numpy_flatgfa(g, path, spare=0.0) -> bytes:
+    from pollen_tpu_torch.fileformat import save_flatgfa
+
+    save_flatgfa(str(path), g, spare=spare)
+    return pathlib.Path(path).read_bytes()
+
+
+def phase_native_fixtures(tmp: pathlib.Path) -> int:
+    """Native on the 8 fixtures: the scanner's arrays equal the NumPy
+    parser's under POLLEN_SCAN_THREADS = 1 and the default, its emit the
+    NumPy emit and the input bytes (to a string and to a file), and its
+    converter parse + save, byte for byte. Returns the checks made."""
+    from pollen_tpu_torch import native
+    from pollen_tpu_torch.flatgfa import parse_gfa
+
+    checks = 0
+    for path in sorted((REPO / "tests" / "graphs").glob("*.gfa")):
+        data = path.read_bytes()
+        want = parse_gfa(data, native=False)
+        for threads in ({"POLLEN_SCAN_THREADS": "1"}, {}):
+            with mock.patch.dict(os.environ, threads):
+                got = native.parse_gfa_native(data)
+            need(got is not None, f"the scanner rejected {path.name}")
+            bad = same_arrays(got, want)
+            need(not bad, f"native parse of {path.name} (threads "
+                 f"{threads or 'default'}) differs in {bad}")
+            checks += 1
+        text = native.emit_gfa_native(got)
+        need(text == numpy_emit(want) == data.decode(),
+             f"native emit of {path.name} differs from the NumPy emit or "
+             "the input")
+        out = tmp / f"{path.stem}.native.gfa"
+        need(native.emit_gfa_file_native(got, str(out))
+             and out.read_bytes() == data,
+             f"native file emit of {path.name} differs from the input")
+        for spare in (0.0, 0.5):
+            conv = tmp / f"{path.stem}.native.flatgfa"
+            need(native.convert_gfa_native(data, str(conv), spare),
+                 f"the converter rejected {path.name}")
+            need(conv.read_bytes()
+                 == numpy_flatgfa(want, tmp / "py.flatgfa", spare),
+                 f"convert_gfa_native of {path.name} (spare {spare}) "
+                 "differs from parse + save_flatgfa")
+        checks += 4
+    return checks
+
+
+def phase_capi(tmp: pathlib.Path):
+    """The C API: build the port's capi.cpp + gfa_scan.cpp and example.c
+    with g++, run the example on tiny.gfa (tests/test_capi.py's
+    assertions) and on a file it must refuse."""
+    src = REPO / "pollen_tpu_torch" / "native"
+    d = tmp / "capi"
+    d.mkdir()
+    for cmd in (
+        ["g++", "-O2", "-shared", "-fPIC", "-pthread", "-std=c++17", "-o",
+         str(d / "libpollen_capi.so"), str(src / "capi.cpp"),
+         str(src / "gfa_scan.cpp"), "-I", str(src)],
+        ["g++", str(src / "example.c"), "-o", str(d / "example"), "-I",
+         str(src), "-L", str(d), "-lpollen_capi", f"-Wl,-rpath,{d}"],
+    ):
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        need(proc.returncode == 0, f"C API build failed: {proc.stderr}")
+    out = subprocess.run([str(d / "example"), "tests/graphs/tiny.gfa"],
+                         capture_output=True, text=True, timeout=60,
+                         cwd=REPO)
+    need(out.returncode == 0, f"C API example failed: {out.stderr}")
+    for line in ("segments: 4", "seg 2: GATTACA", "paths: 2",
+                 "alpha: 0+ 1+ 2+"):
+        need(line in out.stdout, f"C API example: no {line!r}")
+    bad = tmp / "bad.gfa"
+    bad.write_text("X\tnope\n")
+    fail = subprocess.run([str(d / "example"), str(bad)],
+                          capture_output=True, text=True, timeout=60)
+    need(fail.returncode == 1 and "parse failed" in fail.stderr,
+         "C API example accepted a bad file")
+
+
+def mb_s(nbytes: int, s: float) -> str:
+    return f"{s:.3f} s ({nbytes / s / 1e6:.1f} MB/s)"
+
+
+def timed_s(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def fgfa_convert(gfa: pathlib.Path, out: pathlib.Path) -> float:
+    """Seconds of one ``fgfa-torch --device cuda -I gfa -o out`` run (the
+    console script, interpreter start included)."""
+    from pollen_tpu_torch.scripts import script_env
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["fgfa-torch", "--device", "cuda", "-I", str(gfa), "-o", str(out)],
+        capture_output=True, text=True, timeout=600, env=script_env(),
+        cwd=REPO,
+    )
+    need(proc.returncode == 0, f"fgfa-torch -o failed: {proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def phase_native_scale(graphs: dict, tmp: pathlib.Path, card: str) -> dict:
+    """Native at scale: bench and chr8_third with links as GFA text. At
+    both the native parse equals the arena the text was printed from; at
+    bench also the NumPy parse, and the emit (to a string and to a file)
+    and the conversion, native against NumPy, each pair equal; at
+    chr8_third the converter equals parse + save. Each time with the
+    text's bytes and MB/s; ``fgfa-torch -I x.gfa -o y.flatgfa`` end to
+    end at both."""
+    from pollen_tpu_torch import native
+    from pollen_tpu_torch.flatgfa import parse_gfa
+
+    out = {}
+    for name in ("bench", "chr8_third"):
+        g, n_links, _ = add_path_links(graphs[name][0])
+        g = text_arena(g)
+        gfa = tmp / f"{name}.gfa"
+        need(native.emit_gfa_file_native(g, str(gfa)),
+             f"{name}: the native file emit fell back")
+        data = gfa.read_bytes()
+        nbytes = len(data)
+        row = dict(text_bytes=nbytes, links=n_links)
+        t_parse, got = timed_s(lambda: native.parse_gfa_native(data))
+        need(got is not None, f"{name}: the scanner rejected the text")
+        bad = same_arrays(got, g)
+        need(not bad, f"{name}: native parse differs from the printed arena "
+             f"in {bad}")
+        row["parse_native_s"] = t_parse
+        line = f"{name} with links as GFA ({nbytes} bytes): native parse " \
+               f"{mb_s(nbytes, t_parse)}"
+        if name == "bench":
+            t_np, want = timed_s(lambda: parse_gfa(data, native=False))
+            bad = same_arrays(got, want)
+            need(not bad, f"bench: native parse differs from NumPy in {bad}")
+            with mock.patch.dict(os.environ, {"POLLEN_SCAN_THREADS": "1"}):
+                t_one, one = timed_s(lambda: native.parse_gfa_native(data))
+            need(not same_arrays(one, want), "bench: one-thread parse differs")
+            t_emit, text = timed_s(lambda: native.emit_gfa_native(got))
+            t_emit_np, text_np = timed_s(lambda: numpy_emit(got))
+            need(text == text_np and text.encode() == data,
+                 "bench: native emit differs from the NumPy emit or the text")
+            f_nat, f_np = tmp / "bench.emit.native.gfa", tmp / "bench.emit.np.gfa"
+            t_file, ok = timed_s(
+                lambda: native.emit_gfa_file_native(got, str(f_nat)))
+            need(ok, "bench: the native file emit fell back")
+
+            def write_np():
+                with open(f_np, "w", encoding="ascii") as f:
+                    f.write(numpy_emit(got))
+
+            t_file_np, _ = timed_s(write_np)
+            need(f_nat.read_bytes() == f_np.read_bytes() == data,
+                 "bench: the file emits differ")
+            row.update(parse_numpy_s=t_np, parse_native_1thread_s=t_one,
+                       emit_native_s=t_emit, emit_numpy_s=t_emit_np,
+                       emit_file_native_s=t_file,
+                       emit_file_numpy_s=t_file_np)
+            line += (f", one thread {mb_s(nbytes, t_one)}, NumPy "
+                     f"{mb_s(nbytes, t_np)} (equal); emit native "
+                     f"{mb_s(nbytes, t_emit)}, NumPy {mb_s(nbytes, t_emit_np)}"
+                     f"; to a file native {mb_s(nbytes, t_file)}, NumPy "
+                     f"{mb_s(nbytes, t_file_np)} (equal bytes)")
+        conv = tmp / f"{name}.native.flatgfa"
+        t_conv, ok = timed_s(
+            lambda: native.convert_gfa_native(data, str(conv)))
+        need(ok, f"{name}: the converter rejected the text")
+        want_bytes = numpy_flatgfa(got, tmp / f"{name}.py.flatgfa")
+        need(conv.read_bytes() == want_bytes,
+             f"{name}: convert_gfa_native differs from parse + save_flatgfa")
+        cli_out = tmp / f"{name}.cli.flatgfa"
+        t_cli = fgfa_convert(gfa, cli_out)
+        need(cli_out.read_bytes() == want_bytes,
+             f"{name}: fgfa-torch -o differs from parse + save_flatgfa")
+        row.update(convert_native_s=t_conv, fgfa_torch_convert_s=t_cli,
+                   flatgfa_bytes=len(want_bytes))
+        line += (f"; convert_gfa_native {mb_s(nbytes, t_conv)}; fgfa-torch "
+                 f"--device cuda -I -o {mb_s(nbytes, t_cli)} end to end "
+                 f"({len(want_bytes)} bytes out, equal to parse + save)")
+        print(f"{line} [{card}]", flush=True)
+        for p in (gfa, conv, cli_out, tmp / f"{name}.py.flatgfa"):
+            p.unlink()
+        out[name] = row
+    return out
+
+
+def phase_spec(tmp: pathlib.Path) -> dict:
+    """The spec oracle on the card: seeded graphgen graphs (the reference
+    parity test's seeds 11-13 and two larger) through ``fgfa-torch
+    --device cuda``, every command byte for byte against the same
+    command of the spec's CLI; then ``pollen-spec-torch``
+    against the goldens of the 8 fixtures (one run through the console
+    script, the rest through its ``run`` in this process)."""
+    import contextlib
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from graphgen import random_graph
+
+    from pollen_tpu_torch.scripts import script_env
+    from pollen_tpu_torch.spec import __main__ as spec_main
+    from pollen_tpu_torch.spec.model import Graph
+
+    runs = 0
+    steps = {}
+    for seed, (n_segs, n_paths, n_frac, walk) in SPEC_GRAPHS.items():
+        text = random_graph(seed=seed, n_segs=n_segs, n_paths=n_paths,
+                            n_frac=n_frac, walk_len=walk)
+        gfa = tmp / f"spec{seed}.gfa"
+        gfa.write_text(text)
+        spec_graph = Graph.parse_lines(iter(text.splitlines()))
+        names = list(spec_graph.paths)
+        steps[seed] = sum(len(p.steps) for p in spec_graph.paths.values())
+        files = {"paths": tmp / f"spec{seed}.paths",
+                 "half": tmp / f"spec{seed}.half"}
+        files["paths"].write_text("\n".join(names) + "\n")
+        files["half"].write_text("\n".join(names[::2]) + "\n")
+        for argv, spec_argv in SPEC_COMMANDS:
+            argv, spec_argv = ([a.format(**files) for a in v]
+                               for v in (argv, spec_argv))
+            got = run_cli(["--device", "cuda", "-I", str(gfa), *argv])
+            want = io.StringIO()
+            spec_main.run(spec_main.build_parser().parse_args(
+                [*spec_argv, str(gfa)]), want)
+            need(got == want.getvalue(), f"spec seed {seed}: fgfa-torch "
+                 f"{' '.join(argv)} on cuda differs from the spec")
+            runs += 1
+    golden = REPO / "tests" / "golden"
+    kinds = {"depth": [], "degree": [], "matrix": [], "paths": [],
+             "validate": [], "flatten": [], "norm": [], "crush": [],
+             "flip": [], "chop": ["-n", "3"]}
+    proc = subprocess.run(
+        ["pollen-spec-torch", "depth", "tests/graphs/tiny.gfa"],
+        capture_output=True, text=True, timeout=120, env=script_env(),
+        cwd=REPO,
+    )
+    need(proc.returncode == 0 and proc.stdout
+         == (golden / "tiny.depth").read_text(),
+         f"pollen-spec-torch depth tiny.gfa: {proc.stderr[-500:]}")
+    goldens = 1
+    with contextlib.chdir(REPO):
+        for path in sorted((REPO / "tests" / "graphs").glob("*.gfa")):
+            stem = path.stem
+            rel = f"tests/graphs/{path.name}"
+            extra = {
+                "depth_subset": ["depth", "--paths",
+                                 str(golden / f"{stem}.depthpaths")],
+                "overlap": ["overlap", "--paths",
+                            str(golden / f"{stem}.paths")],
+                "inject": ["inject", "--bed", str(golden / f"{stem}.bed")],
+            }
+            argvs = {k: [k, *a] for k, a in kinds.items()} | extra
+            for kind, argv in argvs.items():
+                args = spec_main.build_parser().parse_args([*argv, rel])
+                buf = io.StringIO()
+                spec_main.run(args, buf)
+                need(buf.getvalue() == (golden / f"{stem}.{kind}").read_text(),
+                     f"pollen-spec-torch {kind} {path.name} differs from "
+                     "its golden")
+                goldens += 1
+    print(f"spec oracle: {runs} fgfa-torch --device cuda runs on "
+          f"{len(SPEC_GRAPHS)} seeded graphgen graphs ({sorted(steps.values())}"
+          f" steps) equal to pollen_tpu_torch.spec byte for byte; "
+          f"pollen-spec-torch reproduced {goldens} goldens of the 8 "
+          "fixtures", flush=True)
+    return dict(cli_runs=runs, goldens=goldens, graph_steps=steps)
+
+
+def compose_permuted_host(dg, parts):
+    """The parts composed on the host in ``ell_order``, no un-permute:
+    [tier 1, tiers 2+3, heavy, empty] (numpy, independent of the
+    port's concatenate)."""
+    import numpy as np
+
+    d1, u1, d2, u2, dh, uh = (None if x is None else x.cpu().numpy()
+                              for x in parts)
+    n = dg.num_segments
+    if d2 is None and dh is None and not dg.ell_order.shape[0]:
+        return d1[:n], u1[:n]
+    nl, nh = dg.ell_num_light, dg.ell_num_heavy
+    nm = dg.ell_num_mid + dg.ell_num_mid2
+    d, u = [d1[:nl]], [u1[:nl]]
+    if d2 is not None:
+        d.append(d2[:nm])
+        u.append(u2[:nm])
+    if dh is not None:
+        d.append(dh[:nh])
+        u.append(uh[:nh])
+    empty = np.zeros(n - nl - nm - nh, np.int32)
+    return np.concatenate(d + [empty]), np.concatenate(u + [empty])
+
+
+def phase_permuted(graphs: dict, card: str) -> dict:
+    """``seg_depth_with_uniq_ell_permuted`` on bench, chr8_third and
+    unfused under 8 seeded masks each: equal to the kernels' parts
+    composed on the host without the un-permute, and, un-permuted, to
+    the plain sorted-step path and numpy. Counted as a path of its own:
+    the counts are set to 0 before each permuted call and read just
+    after it, before any reference runs, and each call must launch K1 at
+    bench and chr8_third, K3 and K2 at unfused. One call timed against
+    the host-composed ``seg_depth_with_uniq_ell``."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.ops import depth as depth_op
+    from pollen_tpu_torch.probes.timing import replay_us
+
+    rng = np.random.default_rng(12)
+    out = {}
+    for name, keys in (("bench", ("ell_splitn",)),
+                       ("chr8_third", ("ell_splitn",)),
+                       ("unfused", ("ell_tier", "cross"))):
+        g, dg, reference = graphs[name]
+        order = dg.ell_order.cpu().numpy()
+        counts = dict.fromkeys(launch_counts(), 0)
+        for i, m in enumerate(scale_masks(g.num_paths, rng)):
+            mt = torch.from_numpy(m).cuda()
+            reset_launches()
+            d, u = depth_op.seg_depth_with_uniq_ell_permuted(dg, mt)
+            call = launch_counts()
+            for key in keys:
+                need(call[key] > 0, f"{name} mask {i}: permuted launched "
+                     f"{call}")
+            counts = {k: counts[k] + v for k, v in call.items()}
+            need(d.is_cuda and d.dtype == torch.int32 and d.shape
+                 == (g.num_segments,), f"{name}: permuted {d.shape} {d.dtype}")
+            d, u = d.cpu().numpy(), u.cpu().numpy()
+            parts = depth_op.seg_depth_with_uniq_ell_parts(dg, mt)
+            hd, hu = compose_permuted_host(dg, parts)
+            need(np.array_equal(d, hd) and np.array_equal(u, hu),
+                 f"{name} mask {i}: permuted differs from the host compose")
+            if order.shape[0]:
+                nd, nu = np.empty_like(d), np.empty_like(u)
+                nd[order], nu[order] = d, u
+            else:
+                nd, nu = d, u
+            pd, pu = (t.cpu().numpy() for t in
+                      depth_op.seg_depth_with_uniq_masked(dg, mt))
+            rd, ru = reference(m)
+            need(np.array_equal(nd, pd) and np.array_equal(nu, pu)
+                 and np.array_equal(nd, rd) and np.array_equal(nu, ru),
+                 f"{name} mask {i}: un-permuted differs from plain or numpy")
+        m = torch.from_numpy(rng.random(g.num_paths) < 0.5).cuda()
+        perm_ms = cuda_ms(
+            lambda: depth_op.seg_depth_with_uniq_ell_permuted(dg, m))
+        perm_dev = replay_us(
+            lambda: depth_op.seg_depth_with_uniq_ell_permuted(dg, m))
+        host_ms = cuda_ms(lambda: depth_op.seg_depth_with_uniq_ell(dg, m))
+        print(f"{name} [{card}]: permuted 8 masks equal to the host compose, "
+              f"plain and numpy; launches {counts}; one call {perm_ms * 1e3:.2f}"
+              f" us wall ({perm_dev:.2f} us device), host-composed "
+              f"seg_depth_with_uniq_ell {host_ms * 1e3:.2f} us wall", flush=True)
+        out[name] = dict(launches=counts, permuted_us=perm_ms * 1e3,
+                         permuted_device_us=perm_dev,
+                         host_composed_us=host_ms * 1e3)
+    return out
+
+
+def heavy_free_graph():
+    """(arena, index on the card) of ``HEAVY_FREE`` (steps over segments
+    uniformly), planned with no heavy class."""
+    import dataclasses
+
+    import numpy as np
+
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.probes.ell_probe import three_tiers
+    from pollen_tpu_torch.synth import synth_graph
+
+    n_steps, n_segs, _ = HEAVY_FREE
+    g = synth_graph(*HEAVY_FREE)
+    segs = np.random.default_rng(9).integers(0, n_segs, n_steps)
+    g = dataclasses.replace(g, steps=segs.astype(np.uint32) << np.uint32(1))
+    with three_tiers(HEAVY_FREE_KS):
+        dg = build_graph(g, "cuda")
+    need(not dg.ell_heavy.numel() and dg.ell_pack16,
+         f"heavy-free graph planned a heavy block {tuple(dg.ell_heavy.shape)}")
+    return g, dg
+
+
+def phase_ell_probes(graphs: dict, card: str) -> dict:
+    """The probes on the card: ``ell_probe``'s check stages (ellok,
+    ellbok, ellp16ok) at bench and at a heavy-free graph, diff 0; the
+    calibration points (ellcal, and ellcal1 hrot); scanb, runsk and
+    scatter at bench; ``transform_probe``'s chop and crush at bench."""
+    from pollen_tpu_torch.probes import ell_probe, transform_probe
+
+    import torch
+
+    g, dg, _ = graphs["bench"]
+    _, dg_free = heavy_free_graph()
+    n_steps = g.num_steps
+    say = lambda s: print(f"  {s}", flush=True)  # noqa: E731
+    out = {"checks": {}}
+    print(f"ell_probe at bench: {ell_probe.describe(dg)}; heavy-free "
+          f"{HEAVY_FREE}: {ell_probe.describe(dg_free)} [{card}]", flush=True)
+    for where, d in (("bench", dg), ("heavy_free", dg_free)):
+        for stage in ("ellok", "ellbok", "ellp16ok"):
+            res = ell_probe.run_stage(stage, None, d, n_steps, say=say)
+            need(res["diff"] == 0, f"{stage} at {where}: diff {res['diff']}")
+            out["checks"][f"{stage} {where}"] = res["diff"]
+    out["ellp16_heavy_free"] = ell_probe.run_stage(
+        "ellp16", None, dg_free, HEAVY_FREE[0], say=say)
+    out["ellcal"] = ell_probe.stage_ellcal(dg, say=say)
+    out["hrot"] = ell_probe.stage_ellcal1(dg, "hrot:16384", say=say)
+    for stage in ("ellraw", "scanb", "runsk", "scatter"):
+        out[stage] = ell_probe.run_stage(stage, None, dg, n_steps, say=say)
+    dev = torch.device("cuda")
+    out["chop"] = transform_probe.stage_chop(g, dev, say=say)
+    out["crush"] = transform_probe.stage_crush(g, dev, say=say)
+    need(out["chop"]["equal"] and out["crush"]["equal"],
+         "transform_probe: the device stages differ from the host's")
+    del dg_free
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_native_spec_probes(graphs: dict, card: str) -> dict:
+    """Phase 5: the native layer (no hidden fallback: its build must
+    succeed with POLLEN_NATIVE unset), the C API, native at scale, the
+    spec oracle, the permuted ELL query as a path of its own, then the
+    probes, K1-K4 and K6-K8 launched by this phase."""
+    from pollen_tpu_torch import native
+
+    need("POLLEN_NATIVE" not in os.environ, "POLLEN_NATIVE is set")
+    t0 = time.perf_counter()
+    need(native.native_available(),
+         f"the native library did not build: {native.build_error}")
+    out = {"library": native.library_path().name,
+           "build_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        n = phase_native_fixtures(tmp)
+        phase_capi(tmp)
+        print(f"native: {out['library']} built in {out['build_s']:.2f} s; "
+              f"{n} checks on the 8 fixtures equal (parse under 1 and the "
+              "default scan threads, emit, file emit, convert); the C API "
+              "example passed", flush=True)
+        out["scale"] = phase_native_scale(graphs, tmp, card)
+        out["spec"] = phase_spec(tmp)
+    out["permuted"] = phase_permuted(graphs, card)
+    permuted = {}
+    for row in out["permuted"].values():
+        for k, v in row["launches"].items():
+            permuted[k] = permuted.get(k, 0) + v
+    reset_launches()
+    out["probes"] = phase_ell_probes(graphs, card)
+    probes = launch_counts()
+    total = {k: permuted.get(k, 0) + probes[k] for k in probes}
+    for name in ("ell_splitn (K1)", "cross (K2)", "ell_tier (K3)",
+                 "ell_splitn_batch (K4)", "seg_scan (K6)", "boundary (K7)",
+                 "run_scan (K8)"):
+        need(total[KERNELS[name][2]] > 0,
+             f"{name} was never launched by phase 5")
+    out["launches"] = {"permuted": permuted, "probes": probes}
+    print(f"phase 5 launches: permuted {permuted}; probes {probes}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not (REPO / "pollen_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -3625,6 +4203,11 @@ def main() -> int:
         need(api["launches"][path][key] > 0,
              f"{name} was never launched by the {path}")
     stamp("the library API, the shell and the entry at chr8_third done")
+    t5 = time.perf_counter()
+    phase5 = phase_native_spec_probes(graphs, card)
+    phase5["seconds"] = time.perf_counter() - t5
+    stamp("native host code, the spec oracle, the permuted query and the "
+          "probes done")
     rows = [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=launches[name], max_abs_err=errs.max[name],
@@ -3634,6 +4217,7 @@ def main() -> int:
     stamp("total")
     print(json.dumps({"device_ops": device_ops}))
     print(json.dumps({"api_shell": api}))
+    print(json.dumps({"native_spec_probes": phase5}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

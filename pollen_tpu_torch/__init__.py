@@ -31,6 +31,10 @@ Modules, from the entry point down:
   the GFA parser, the binary loader and writer, the GFA emitter and the
   BED reader; :mod:`pollen_tpu_torch.packedseq` — packed nucleotide
   files (``seq-export``, ``seq-import``).
+* :mod:`pollen_tpu_torch.native` — the C++ GFA scanner, emitter,
+  converter and C API (built with ``g++`` at first use; NumPy fallback);
+  :mod:`pollen_tpu_torch.spec` — the executable spec
+  (``pollen-spec-torch``), the oracle the port is held to.
 * :mod:`pollen_tpu_torch.synth` — seeded synthetic graphs;
   :mod:`pollen_tpu_torch.profiling` — wall-time logging, torch.profiler
   traces and a synchronized best-of timer; :mod:`pollen_tpu_torch.entry`

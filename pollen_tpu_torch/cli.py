@@ -316,15 +316,19 @@ def _main(argv, stdin: TextIO, out: TextIO) -> None:
             out.write(f"{line_count(args.wcl, args.parallel)}\n")
         return
 
-    # Pure GFA -> binary conversion: parse, then write (the reference's
-    # native converter writes the same bytes).
+    # Pure GFA -> binary conversion: one native pass straight from text
+    # to the output file, never materializing Python-side pools (the
+    # reference's prealloc_translate, cli/main.rs:216-248); parse and
+    # write where the scanner is not built or rejects the text.
     if args.command is None and args.input_gfa and args.output:
         from .fileformat import save_flatgfa
+        from .native import convert_gfa_native
 
-        save_flatgfa(
-            args.output, parse_gfa_file(args.input_gfa),
-            spare=args.prealloc_factor,
-        )
+        with open(args.input_gfa, "rb") as f:
+            data = f.read()
+        if convert_gfa_native(data, args.output, args.prealloc_factor):
+            return
+        save_flatgfa(args.output, parse_gfa(data), spare=args.prealloc_factor)
         return
 
     g = _load(args)

@@ -1,8 +1,9 @@
 """GFA text emission from the flat arena.
 
 The port's own copy of the JAX package's emitter (pollen_tpu/emit.py
-``emit_gfa``, ``emit_gfa_to_file``), without its optional C++ emitter:
-the NumPy rendering below gives the same bytes. Three orders are
+``emit_gfa``, ``emit_gfa_to_file``). Preserved order prefers the C++
+emitter of :mod:`.native`; the NumPy rendering below gives the same
+bytes where it is not built (or ``POLLEN_NATIVE=0``). Three orders are
 supported (reference: flatgfa/src/print.rs:98-142 and mygfa's
 normalized sort):
 
@@ -175,6 +176,18 @@ def emit_gfa(
     *original*, pre-rename names). ``include_links=False`` omits L lines
     (the spec emits chop/inject results linkless).
     """
+    if order == "preserved":
+        # Fast path: the C++ emitter (byte-identical; falls through to
+        # the NumPy path if the native library is unavailable).
+        try:
+            from .native import emit_gfa_native
+
+            text = emit_gfa_native(g)
+            if text is not None:
+                return text
+        except Exception:
+            pass
+
     header = (
         ["H\t" + g.header.tobytes().decode("ascii")] if g.header.size else []
     )
@@ -217,7 +230,20 @@ def emit_gfa(
 
 
 def emit_gfa_to_file(g: GraphArrays, path: str) -> None:
-    """Write preserved-order GFA text to ``path``."""
+    """Write preserved-order GFA text to ``path``.
+
+    Prefers the C++ emitter's direct-to-file path (the transform
+    commands are emit-bound; this skips the Python string round trip),
+    falling back to ``emit_gfa`` + write."""
+    try:
+        from .native import emit_gfa_file_native
+
+        if emit_gfa_file_native(g, path):
+            return
+    except OSError:
+        raise
+    except Exception:
+        pass
     with open(path, "w", encoding="ascii") as f:
         f.write(emit_gfa(g, order="preserved"))
 

@@ -354,14 +354,27 @@ def _parse_cigar_pool(
     return pool, spans
 
 
-def parse_gfa(data: bytes) -> GraphArrays:
+def parse_gfa(data: bytes, native: bool = True) -> GraphArrays:
     """Parse GFA text into a :class:`GraphArrays` arena.
 
-    A vectorized two-pass NumPy build (semantics follow the reference
-    parser, flatgfa/src/parse.rs:24-126): segments are ingested first so
-    that links and paths — which may reference segments defined later in
-    the file — resolve against the complete name table.
+    Tries the C++ single-pass scanner first (:mod:`.native`), then
+    falls back to this vectorized two-pass NumPy build (semantics follow
+    the reference parser, flatgfa/src/parse.rs:24-126): segments are
+    ingested first so that links and paths — which may reference
+    segments defined later in the file — resolve against the complete
+    name table. The scanner gives identical arrays; where it rejects a
+    corner of the grammar, the NumPy path gives the real diagnostics.
     """
+    if native:
+        try:
+            from .native import parse_gfa_native
+
+            result = parse_gfa_native(data)
+            if result is not None:
+                return result
+        except Exception:
+            pass  # any native hiccup falls back to the NumPy path
+
     try:
         return _parse_gfa_numpy(data)
     except GFAParseError:

@@ -189,28 +189,57 @@ def seg_depth_with_uniq_ell_parts(
     return d1, u1, d2, u2, dh, uh
 
 
+def _ell_pieces(dg: TorchGraph, parts):
+    """The per-class parts ``(d1, u1, d2, u2, dh, uh)`` (columns on the
+    last axis) cut to their classes in ``ell_order`` ([tier 1, tiers
+    2+3, heavy]): ``(depth pieces, uniq pieces, empty columns)``, or
+    None where there is no order and no second part (the first tier is
+    then the whole answer)."""
+    d1, u1, d2, u2, dh, uh = parts
+    if d2 is None and dh is None and not dg.ell_order.shape[0]:
+        return None
+    nl, nh = dg.ell_num_light, dg.ell_num_heavy
+    nm = dg.ell_num_mid + dg.ell_num_mid2  # the mid part folds tiers 2+3
+    dparts, uparts = [d1[..., :nl]], [u1[..., :nl]]
+    if d2 is not None:
+        dparts.append(d2[..., :nm])
+        uparts.append(u2[..., :nm])
+    if dh is not None:
+        dparts.append(dh[..., :nh])
+        uparts.append(uh[..., :nh])
+    return dparts, uparts, dg.num_segments - nl - nm - nh
+
+
+def seg_depth_with_uniq_ell_permuted(
+    dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (depth, uniq) in the index's own ``ell_order`` ([tier 1,
+    tiers 2+3, heavy, empty]) as two int32 vectors on the graph's
+    device: the parts query plus one concatenate (the empty tail is a
+    zero block), with no host round trip and no un-permute. Prefer the
+    parts form on hot paths."""
+    parts = seg_depth_with_uniq_ell_parts(dg, path_mask, plain=plain)
+    pieces = _ell_pieces(dg, parts)
+    if pieces is None:
+        n = dg.num_segments
+        return parts[0][:n], parts[1][:n]
+    dparts, uparts, ne = pieces
+    zero = torch.zeros(ne, dtype=torch.int32, device=parts[0].device)
+    return torch.cat(dparts + [zero]), torch.cat(uparts + [zero])
+
+
 def _compose_ell(dg: TorchGraph, parts) -> Tuple[np.ndarray, np.ndarray]:
     """Per-class ``(d1, u1, d2, u2, dh, uh)`` parts of shape (Q, class
     columns) -> host int32 (depth, uniq) of shape (Q, N) in natural
     segment order: composed and un-permuted by ``ell_order`` on the host,
     as the reference does."""
-    d1, u1, d2, u2, dh, uh = (
-        None if x is None else x.cpu().numpy() for x in parts
-    )
+    parts = [None if x is None else x.cpu().numpy() for x in parts]
+    pieces = _ell_pieces(dg, parts)
     n = dg.num_segments
-    if d2 is None and dh is None and not dg.ell_order.shape[0]:
-        return d1[:, :n], u1[:, :n]
-    nl, nh = dg.ell_num_light, dg.ell_num_heavy
-    nm = dg.ell_num_mid + dg.ell_num_mid2
-    ne = n - nl - nm - nh
-    dparts, uparts = [d1[:, :nl]], [u1[:, :nl]]
-    if d2 is not None:
-        dparts.append(d2[:, :nm])
-        uparts.append(u2[:, :nm])
-    if dh is not None:
-        dparts.append(dh[:, :nh])
-        uparts.append(uh[:, :nh])
-    empty = np.zeros((d1.shape[0], ne), np.int32)
+    if pieces is None:
+        return parts[0][:, :n], parts[1][:, :n]
+    dparts, uparts, ne = pieces
+    empty = np.zeros((parts[0].shape[0], ne), np.int32)
     d = np.concatenate(dparts + [empty], axis=1)
     u = np.concatenate(uparts + [empty], axis=1)
     if dg.ell_order.shape[0]:

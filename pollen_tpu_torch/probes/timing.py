@@ -83,6 +83,28 @@ def host_us(fn) -> float:
     return statistics.median(times)
 
 
+def events_us(fn, device) -> tuple:
+    """(median µs per call, what measured it) for a function that reads
+    values back to the host, which graph capture refuses: CUDA events
+    around each of ``REPS`` calls on the card, the host clock on the
+    CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return host_us(fn), "host clock, cpu"
+    fn()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times), "events"
+
+
 def time_call(fn, device) -> tuple:
     """(µs per call, what measured it): the graph replay on the card,
     the host clock on the CPU."""

@@ -1,10 +1,11 @@
 """Locate — or synthesize — the port's console scripts.
 
-The port's copy of the JAX package's pollen_tpu/scripts.py. The three
-CLIs (``fgfa-torch``, ``flash-torch``, ``exine-torch``) are declared as
+The port's copy of the JAX package's pollen_tpu/scripts.py. The four
+CLIs (``fgfa-torch``, ``flash-torch``, ``exine-torch``,
+``pollen-spec-torch``) are declared as
 entry points in pyproject.toml, but tests and scripts must work from a
 bare checkout too (no ``pip install -e .``).
-``script_env()`` returns an environment whose PATH resolves all three:
+``script_env()`` returns an environment whose PATH resolves all four:
 either they are already installed, or thin ``python -m`` shims are
 written to ``<repo>/.bin`` and that directory is prepended.
 """
@@ -23,6 +24,7 @@ SCRIPTS: Dict[str, str] = {
     "fgfa-torch": "pollen_tpu_torch",
     "flash-torch": "pollen_tpu_torch.shell",
     "exine-torch": "pollen_tpu_torch.accel",
+    "pollen-spec-torch": "pollen_tpu_torch.spec",
 }
 
 _REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -42,7 +44,7 @@ def _write_shim(bindir: pathlib.Path, name: str, module: str) -> None:
 
 
 def script_env(base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
-    """Environment (copy) in which all three console scripts resolve."""
+    """Environment (copy) in which all four console scripts resolve."""
     env = dict(os.environ if base is None else base)
     missing = [n for n in SCRIPTS if shutil.which(n, path=env.get("PATH"))
                is None]

@@ -23,7 +23,22 @@ def test_package_data_names_the_kernel_sources():
     assert set(globs) >= {"csrc/*.cu", "csrc/*.cuh"}
     pkg = REPO / "pollen_tpu_torch"
     shipped = {p for g in globs for p in pkg.glob(g)}
-    assert shipped == set((pkg / "csrc").iterdir())  # every source file
+    csrc = {p for p in shipped if p.parent == pkg / "csrc"}
+    assert csrc == set((pkg / "csrc").iterdir())  # every source file
+
+
+def test_package_data_names_the_native_sources():
+    """The C++ scanner, the C API and its example ship, so an installed
+    port can build them (the bridge is a module, shipped as code)."""
+    data = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]["pollen_tpu_torch"]
+    pkg = REPO / "pollen_tpu_torch"
+    shipped = {p for g in globs for p in pkg.glob(g)
+               if p.parent == pkg / "native"}
+    assert shipped == {p for p in (pkg / "native").iterdir()
+                       if p.suffix in (".cpp", ".h", ".c")}
+    assert {p.name for p in shipped} == {
+        "gfa_scan.cpp", "capi.cpp", "pollen_capi.h", "example.c"}
 
 
 def test_build_dir_is_the_package_dir_in_a_checkout():

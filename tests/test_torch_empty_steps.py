@@ -10,7 +10,10 @@ empty case (``pollen_tpu_torch/emit.py`` ``_step_token_blob``) and
 prints the graph. Each case asserts both halves, so a repaired
 reference shows up here. Where the reference's native emitter is built,
 it renders the reference's transformed arena with the same bytes as the
-port's arena in preserved order.
+port's arena in preserved order. The port's cases run twice: with its
+own native emitter (``pollen_tpu_torch.native``, the default where it
+is built) and with ``POLLEN_NATIVE=0`` (the NumPy emitter and its
+guard), with the same hand-written bytes.
 """
 
 import pytest
@@ -22,6 +25,7 @@ from pollen_tpu.device import build_device_graph
 from pollen_tpu.flatgfa import parse_gfa as ref_parse_gfa
 from pollen_tpu.ops import inject as ref_inject
 from pollen_tpu.ops import transform as ref_transform
+from pollen_tpu_torch import native as port_native
 from pollen_tpu_torch.bed import parse_bed
 from pollen_tpu_torch.device import build_graph
 from pollen_tpu_torch.emit import emit_gfa
@@ -73,9 +77,7 @@ def arenas(command: str):
             port_inject.inject(g, parse_bed(BED)))
 
 
-@pytest.mark.parametrize("mode", ["cli", "serve"])
-@pytest.mark.parametrize("command", list(EXPECTED))
-def test_transforms_on_a_graph_without_steps(command, mode, tmp_path):
+def check_transform(command, mode, tmp_path):
     gfa, bed = tmp_path / "nosteps.gfa", tmp_path / "region.bed"
     gfa.write_bytes(GFA)
     bed.write_bytes(BED)
@@ -96,6 +98,22 @@ def test_transforms_on_a_graph_without_steps(command, mode, tmp_path):
         assert got == cli_bytes + "##end\tok\n"
 
 
+@pytest.mark.parametrize("mode", ["cli", "serve"])
+@pytest.mark.parametrize("command", list(EXPECTED))
+def test_transforms_on_a_graph_without_steps(command, mode, tmp_path):
+    check_transform(command, mode, tmp_path)
+
+
+@pytest.mark.parametrize("mode", ["cli", "serve"])
+@pytest.mark.parametrize("command", list(EXPECTED))
+def test_transforms_without_steps_under_pollen_native_0(
+    command, mode, tmp_path, monkeypatch
+):
+    monkeypatch.setenv("POLLEN_NATIVE", "0")
+    assert not port_native.native_available()
+    check_transform(command, mode, tmp_path)
+
+
 @pytest.mark.parametrize("command", list(EXPECTED))
 def test_transformed_arena_against_the_native_emitter(command):
     """The port's transformed arena in preserved order is the
@@ -108,3 +126,18 @@ def test_transformed_arena_against_the_native_emitter(command):
         pytest.skip("the reference's native emitter (pollen_tpu/native) is "
                     "not built here: no C++ compiler or POLLEN_NATIVE=0")
     assert ref_native.emit_gfa_native(ref_arena) == preserved
+
+
+@pytest.mark.parametrize("command", list(EXPECTED))
+def test_transformed_arena_through_both_port_emitters(command, monkeypatch):
+    """The port's native emitter prints the hand-written text, and so
+    does its NumPy emitter under POLLEN_NATIVE=0."""
+    _, preserved = EXPECTED[command]
+    _, port_arena = arenas(command)
+    if not port_native.native_available():
+        pytest.skip("the port's native emitter is not built here: no C++ "
+                    "compiler")
+    assert port_native.emit_gfa_native(port_arena) == preserved
+    monkeypatch.setenv("POLLEN_NATIVE", "0")
+    assert port_native.emit_gfa_native(port_arena) is None
+    assert emit_gfa(port_arena, order="preserved") == preserved

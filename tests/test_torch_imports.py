@@ -3,8 +3,9 @@ module of ``pollen_tpu_torch`` (the object API, the shell, the console
 scripts, profiling and the entry among them), CLI runs (depth, degree,
 flip with ``-O``, ``gaf -b``, ``extract`` and ``exine-torch depth -a
 -r``), the API (``parse``, ``device()``, ``all_reads``), a
-``flash-torch`` program, profiling and ``entry`` load in a fresh
-interpreter
+``flash-torch`` program, profiling, ``entry``, the native scanner,
+emitter and converter, the spec and the two ELL and transform probes
+load in a fresh interpreter
 with ``jax`` and every ``pollen_tpu`` module absent from
 ``sys.modules`` (the machine with the card has no JAX installed), and
 no import statement of the port or of ``chip_smoke.py`` names them, nor
@@ -33,7 +34,9 @@ for name in names:
     importlib.import_module(name)
 for name in ("api", "entry", "profiling", "scripts", "shell",
              "shell.__main__", "shell.evaluate", "shell.ir", "shell.opt",
-             "shell.parse"):
+             "shell.parse", "native", "spec", "spec.__main__",
+             "spec.commands", "spec.model", "probes.ell_probe",
+             "probes.transform_probe"):
     assert "pollen_tpu_torch." + name in names, name
 from pollen_tpu_torch import cli
 for argv, golden in (
@@ -75,6 +78,34 @@ with tempfile.TemporaryDirectory() as tmp, profiling.device_trace(tmp):
 assert profiling.time_best(forward, *args, reps=1) >= 0
 import shutil
 assert shutil.which("flash-torch", path=script_env()["PATH"])
+import torch
+from pollen_tpu_torch import native
+from pollen_tpu_torch.emit import emit_gfa
+from pollen_tpu_torch.flatgfa import parse_gfa
+data = open(sys.argv[1], "rb").read()
+if shutil.which("g++"):
+    assert native.native_available(), native.build_error
+    assert native.emit_gfa_native(native.parse_gfa_native(data)) == data.decode()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        cli.main(["--device", "cpu", "-I", sys.argv[1], "-o", tmp + "/t.fgfa"],
+                 stdout=out)
+        assert native.convert_gfa_native(data, tmp + "/n.fgfa")
+        assert open(tmp + "/t.fgfa", "rb").read() == open(tmp + "/n.fgfa",
+                                                          "rb").read()
+assert emit_gfa(parse_gfa(data)).encode() == data
+from pollen_tpu_torch.spec import commands as spec_commands
+from pollen_tpu_torch.spec.model import Graph
+spec_out = io.StringIO()
+spec_commands.depth(Graph.parse_file(sys.argv[1]), spec_out)
+assert spec_out.getvalue() == open(sys.argv[4]).read()
+from pollen_tpu_torch.probes import ell_probe, transform_probe
+cpu = torch.device("cpu")
+g, dg = ell_probe.build((3000, 512, 8), cpu)
+for stage in ("ellok", "ellbok", "ellp16ok"):
+    assert ell_probe.run_stage(stage, None, dg, 3000, say=len)["diff"] == 0
+assert transform_probe.stage_chop(g, cpu, say=len)["equal"]
+assert transform_probe.stage_crush(g, cpu, say=len)["equal"]
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pollen_tpu", "bench",
                                        "probes"))
@@ -105,9 +136,9 @@ def test_port_imports_nothing_of_jax_or_pollen_tpu(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     # __main__, accel (+4), api, bed, cli, device, emit, entry,
-    # fileformat, flatgfa, packedseq, profiling, scripts, synth, kernels
-    # (+8), ops (+13), probes (+7), shell (+6)
-    assert int(proc.stdout.strip()) >= 50
+    # fileformat, flatgfa, native, packedseq, profiling, scripts, synth,
+    # kernels (+8), ops (+13), probes (+9), shell (+6), spec (+4)
+    assert int(proc.stdout.strip()) >= 57
 
 
 SOURCES = sorted((REPO / "pollen_tpu_torch").rglob("*.py")) + [

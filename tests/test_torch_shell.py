@@ -342,14 +342,15 @@ def test_run_program_without_a_card_raises(monkeypatch):
 
 
 def test_scripts_resolve_the_port_clis():
-    """script_env() puts fgfa-torch, flash-torch and exine-torch on PATH,
-    each running its package's __main__."""
+    """script_env() puts fgfa-torch, flash-torch, exine-torch and
+    pollen-spec-torch on PATH, each running its package's __main__."""
     from pollen_tpu_torch.scripts import SCRIPTS
 
     assert SCRIPTS == {
         "fgfa-torch": "pollen_tpu_torch",
         "flash-torch": "pollen_tpu_torch.shell",
         "exine-torch": "pollen_tpu_torch.accel",
+        "pollen-spec-torch": "pollen_tpu_torch.spec",
     }
     env = script_env()
     for name in SCRIPTS:
