@@ -46,8 +46,9 @@ The scan family (graphs past the ELL and crossing-matrix budgets) is
 checked the same way: segment scan K6, boundary gather K7 and run scan
 K8 against their plain versions on the fixtures and on seeded cases of
 1-3 scan blocks at 60 to 2^17 + 300 paths, a group across three blocks
-and a head carry, and K6's single pass at 2^25 steps (one group; a
-group start every 7 steps; 20 back-to-back calls; two replays of a
+and a head carry (a host int, and an int32 on the device), and K6's
+single pass at 2^25 steps (one group; a group start every 7 steps,
+each under both carries; 20 back-to-back calls; two replays of a
 captured CUDA graph), and K8's at 2^25 runs (all-ones mask, the
 weighted sum wrapping past 2^31; seeded runs; 20 back-to-back calls;
 two graph replays) (phase 1); ``depth -d -s`` (route "scan") and
@@ -156,14 +157,42 @@ calibration points and fits, and ``ellraw``, ``scanb``, ``runsk``,
 bench. K1-K4 and K6-K8 must be launched by this phase. Its numbers are
 the ``{"native_spec_probes": ...}`` line.
 
+Phase 6 drives the sharded path (``pollen_tpu_torch/parallel/``) two
+ways. First as one rank over NCCL in this process (a 1 x 1 mesh): on
+the 8 fixtures under two masks each, the cumsum, scatter and fused
+(K6) scan forms, the column-sharded crossing matrix (K2) and tiered
+ELL (K9; its batch) and the degree equal the single-device ``--device
+cuda`` answers; ``distributed.ingest_arena`` and ``ingest`` equal the
+parse and ``build_graph``'s chunk; the fused query runs whole under
+``torch.cuda.set_sync_debug_mode("error")`` (no host sync between its
+all-gather and K6, whose head carry it reads from the device). Then as
+two ranks sharing the one card over gloo (NCCL refuses two ranks on one
+device), spawned with a deadline, at full size: wide_p2e17's fused
+query on K6 (the chunk bound straddled by a group), the cumsum and the
+scatter forms under 8 masks; chr8_third's sharded ELL (three tiers and
+heavy: K9, K2) under 8 masks and its batch at Q = 32 (plain batched
+tiers, K5 on the heavy slice); chr8_third's crossing matrix (256 MiB,
+K2) under 8 masks; bench's degree; and ``ingest_arena`` over bench's
+GFA text (38 MB), each rank parsing its own byte range, equal to the
+single-process parse field by field. Every answer is gathered and
+held, exactly, against the single-device routed query on the same rank
+and ``NumpyReference``. Each sharded query's wall and busy time are
+printed per rank beside the single-device routed query's ("2 ranks on
+one H100": two ranks sharing a card, not a scaling result), with the
+batched tiers' plain time and the exchange's seconds; rank 1 then
+times K6 (device carry), K9, K2 and K5 on its own piece, their rows of
+the kernels' line. Its numbers are the ``{"sharded": ...}`` line.
+
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
 batch: phase 2's ``-S`` requests and phase 3's batches; the scan
 family: its phase 2 requests and phase 3 queries and batches; the flat
 ELL path; the probe path; phase 4's API queries, K1, and its entry,
-K2; phase 5's permuted query on each graph, and its probes) and read
-right after it: every kernel must have been launched by
-its path. Each kernel's time is its CUDA-event
+K2; phase 5's permuted query on each graph, and its probes; phase 6's
+sharded queries, on each rank) and read right after it: every kernel
+must have been launched by its path (phase 6: K6 by the fused query,
+K9 and K2 by the ELL query, K5 by its batch, K2 by the crossing
+matrix's). Each kernel's time is its CUDA-event
 wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
 wall, its bound and its library call (wall and replay): one PyTorch
@@ -244,6 +273,21 @@ KERNELS = {
         SRC_PROBES, "probes/crossmat_variants.py:64", "cross_probe_v2"
     ),
 }
+# The sharded path (phase 6): four kernels timed again on the timed
+# rank's own piece of the graph (two ranks sharing the card); their
+# launches are phase 6's sharded queries' counts.
+SHARDED_ROWS = (
+    "seg_scan (K6), sharded fused, device carry",
+    "ell_flat (K9), sharded ELL tier 1",
+    "cross (K2), sharded crossing matrix",
+    "cross_batch (K5), sharded ELL heavy, Q=32",
+)
+KERNELS.update(zip(SHARDED_ROWS, (
+    (SRC_SCAN, "pollen_tpu/kernels/segscan.py:129", "seg_scan"),
+    (SRC, "pollen_tpu/kernels/ellscan.py:326", "ell_flat"),
+    (SRC, "pollen_tpu/kernels/crossmat.py:102", "cross"),
+    (SRC_BATCH, "pollen_tpu/kernels/crossmat.py:290", "cross_batch"),
+)))
 # The ladder timed a second time at the unfused heavy block, where K2
 # loses to the float32 matmul (the same kernels and launch counts).
 UNFUSED_PROBES = ", unfused heavy block"
@@ -1633,17 +1677,29 @@ def phase_kernels_scan(errs: Errors):
         for start in (700, SCAN_BLOCK - 300, SCAN_BLOCK + 4000):
             ids[start:] = rng.integers(0, 8)
             rs[start:] = start
+        hc_dev = torch.tensor(hc, dtype=torch.int32, device="cuda")
         for _ in range(4):
             mk = (rng.random(8) < 0.5).astype(np.int32)
             mk[3] = 1
             seg(cuda(ids), cuda(rs), None, cuda(mk), f"head carry {hc}", hc)
+            # The carry as an int32 on the device (the sharded query's):
+            # against plain with the same tensor, and the int carry.
+            seg(cuda(ids), cuda(rs), None, cuda(mk),
+                f"head carry {hc} on the device", hc_dev)
+            errs.compare("seg_scan (K6)",
+                         segscan.masked_depth_cumsums(cuda(ids), cuda(rs),
+                                                      cuda(mk), hc_dev),
+                         segscan.masked_depth_cumsums(cuda(ids), cuda(rs),
+                                                      cuda(mk), hc),
+                         f"head carry {hc}: device against int")
     check_seg_scan_lookback(errs)
     check_run_scan_lookback(errs)
     torch.cuda.synchronize()
     print("phase 1 (scan family): K6, K7, K8 equal their plain versions on "
           f"8 fixtures and P = {', '.join(map(str, SCAN_PS))} (1-3 scan "
           "blocks), a group across three blocks and of 2^23 steps, head "
-          "carry 0-2; 4 masks each; K6's look-back on 2^25 steps (one "
+          "carry 0-2 (a host int, and an int32 on the device equal to the "
+          "int's answer); 4 masks each; K6's look-back on 2^25 steps (one "
           "group, and a group start every 7 steps), 20 back-to-back calls "
           "and two replays of a captured CUDA graph; K8's the same at 2^25 "
           "runs (all-ones mask, weighted sum wrapping past 2^31; seeded "
@@ -1676,10 +1732,14 @@ def check_seg_scan_lookback(errs: Errors):
     )
     for what, path, rs, m in cases:
         for hc in (0, 2):
+            want = segscan.masked_depth_cumsums_plain(path, rs, m, hc)
             errs.compare("seg_scan (K6)",
                          segscan.masked_depth_cumsums(path, rs, m, hc),
-                         segscan.masked_depth_cumsums_plain(path, rs, m, hc),
-                         f"{what}, head carry {hc}")
+                         want, f"{what}, head carry {hc}")
+            hc_dev = torch.tensor(hc, dtype=torch.int32, device="cuda")
+            errs.compare("seg_scan (K6)",
+                         segscan.masked_depth_cumsums(path, rs, m, hc_dev),
+                         want, f"{what}, head carry {hc} on the device")
     _, path, rs, m = cases[1]
     want = segscan.masked_depth_cumsums_plain(path, rs, m)
     outs = [segscan.masked_depth_cumsums(path, rs, m) for _ in range(20)]
@@ -4100,6 +4160,523 @@ def phase_native_spec_probes(graphs: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the sharded path (pollen_tpu_torch/parallel/): every sharded query
+# as one rank over NCCL in this process, then as two ranks on the one card
+# over gloo at full size. The card's machine has one card, so this records
+# no multi-card time: the two ranks' times are those of two ranks sharing it.
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 2
+SHARDED_DEADLINE = 400  # s: the two-rank job, its graphs' builds included
+SHARDED_LABEL = "2 ranks on one H100"
+SHARDED_TIMED_RANK = 1  # its chunk's head group straddles the chunk bound
+
+
+def ext_mask(m, device):
+    """int32 [P + 1]: a 0/1 path mask and the padding sentinel's 0."""
+    import torch
+
+    m = torch.as_tensor(m).to(device=device, dtype=torch.int32)
+    return torch.cat([m, m.new_zeros(1)])
+
+
+def routed_device_fn(dg, m):
+    """The single-device routed query's device part (no host copy): the
+    route the router picks, on the card."""
+    import functools
+
+    from pollen_tpu_torch.ops import depth as depth_op
+
+    route, fn = depth_op.masked_route_fn(dg)
+    return route, functools.partial(fn, dg, m)
+
+
+def routed_batch_fn(dg, masks):
+    """The routed batch's device part, as :func:`routed_device_fn`."""
+    import functools
+
+    from pollen_tpu_torch.ops import depth as depth_op
+
+    route, fn = depth_op.batch_route_fn(dg)
+    return route, functools.partial(fn, dg, masks)
+
+
+def lockstep_ms(fn, reps=10, warm=2):
+    """Median CUDA-event wall of one call, with the same number of calls
+    on every rank (a sharded query's collectives pair up across ranks;
+    ``cuda_ms`` picks its count from the first call's time)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+class LaunchLog:
+    """Launch counts by query: the counts set to 0 just before each call
+    of a sharded query and read just after it, summed by label."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def run(self, label, fn):
+        import torch
+
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            if v:
+                row = self.counts.setdefault(label, {})
+                row[k] = row.get(k, 0) + v
+        return out
+
+
+def need_equal(got, want, what):
+    """Exact equality of int vectors (tensors or arrays)."""
+    import numpy as np
+
+    g = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+    w = want.cpu().numpy() if hasattr(want, "cpu") else np.asarray(want)
+    need(g.shape == w.shape and np.array_equal(g, w),
+         f"{what}: differs ({g.shape} vs {w.shape})")
+
+
+def time_pair(rows, label, sharded_fn, single_fn):
+    """The sharded query's wall and device busy time (every rank in
+    step) beside the single-device routed query's, in us."""
+    row = {}
+    for key, fn in (("sharded", sharded_fn), ("single", single_fn)):
+        if fn is None:
+            continue
+        wall = lockstep_ms(fn) * 1e3
+        busy = sum(device_profile(fn, reps=5).values())
+        row[key] = dict(wall_us=wall, busy_us=busy or None)
+    rows[label] = row
+
+
+def phase_sharded_one_rank() -> dict:
+    """Phase 6, one rank over NCCL in this process (a 1 x 1 mesh): every
+    sharded query on the 8 fixtures under two masks equals the single-
+    device ``--device cuda`` answer; ``distributed.ingest`` equals
+    ``build_graph`` on them; the fused query's local part runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync between
+    the all-gather and K6)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pollen_tpu_torch import parse_gfa_file
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.ops import depth as depth_op
+    from pollen_tpu_torch.ops.degree import seg_degree
+    from pollen_tpu_torch.parallel import distributed, launch
+    from pollen_tpu_torch.parallel import sharded as sh
+    from pollen_tpu_torch.parallel.collectives import gather_shards
+
+    log = LaunchLog()
+    rng = np.random.default_rng(61)
+    checks = 0
+    with launch.world_of_one("cuda"):
+        backend = dist.get_backend()
+        need(backend == "nccl", f"one rank on the card runs {backend}, not nccl")
+        mesh = sh.make_mesh()
+        fns = {name: getattr(sh, f"sharded_seg_depth{name}_fn")(mesh)
+               for name in ("", "_scatter", "_fused")}
+        for path in sorted((REPO / "tests" / "graphs").glob("*.gfa")):
+            g = parse_gfa_file(str(path))
+            p, n = g.num_paths, g.num_segments
+            dg = build_graph(g, "cuda")
+            dga = build_graph(g, "cuda", cross_matrix="always")
+            sg = sh.shard_device_graph(dg, mesh)
+            sc = sh.shard_cross_inputs(dga, mesh)
+            se = sh.shard_ell_inputs(dga, mesh)
+            has = dict(has_heavy=se.heavy is not None, has_mid=se.ell2 is not None,
+                       has_mid2=se.ell3 is not None)
+            masks = [np.ones(p, bool), rng.random(p) < 0.5]
+            for i, m in enumerate(masks):
+                mt = torch.from_numpy(m).cuda()
+                want = depth_op.masked_seg_depth(dg, mt)
+                me = ext_mask(mt, "cuda")
+                for name, fn in fns.items():
+                    d, u = log.run(f"fused" if name == "_fused" else "scan",
+                                   lambda: fn(sg, me))
+                    if name == "_scatter":
+                        d, u = gather_shards(d, mesh.get_group("chip"))[:n], \
+                            gather_shards(u, mesh.get_group("chip"))[:n]
+                    need_equal(d, want[0], f"{path.name} sharded{name} depth")
+                    need_equal(u, want[1], f"{path.name} sharded{name} uniq")
+                mp = torch.zeros(sc.num_paths_padded, dtype=torch.int32, device="cuda")
+                mp[:p] = mt.to(torch.int32)
+                d, u = log.run("cross", lambda: sh.sharded_cross_depth_fn(
+                    mesh, nibble=sc.nibble)(sc.cross, sc.res, sc.res_seg, mp))
+                need_equal(d[:n], want[0], f"{path.name} sharded cross depth")
+                need_equal(u[:n], want[1], f"{path.name} sharded cross uniq")
+                parts = log.run("ell", lambda: sh.sharded_ell_depth_fn(mesh, **has)(
+                    *sh.ell_args(se, mt.to(torch.int32))))
+                d, u = sh.compose_ell_parts_natural(dga, parts, **has)
+                need_equal(d, want[0], f"{path.name} sharded ELL depth")
+                need_equal(u, want[1], f"{path.name} sharded ELL uniq")
+                checks += 5
+            mb = torch.from_numpy(np.stack(masks)).cuda()
+            parts = log.run("ell batch", lambda: sh.sharded_ell_depth_batch_fn(
+                mesh, **has)(*sh.ell_args(se, mb.to(torch.int32))))
+            want_b = depth_op.seg_depth_with_uniq_batch(dga, mb)
+            for q in range(2):
+                d, u = sh.compose_ell_parts_natural(dga, [x[q] for x in parts], **has)
+                need_equal(d, want_b[0][q], f"{path.name} sharded ELL batch depth")
+                need_equal(u, want_b[1][q], f"{path.name} sharded ELL batch uniq")
+            deg = log.run("degree", lambda: sh.sharded_degree_fn(mesh)(
+                *sh.shard_degree_inputs(dg, mesh)))
+            need_equal(deg, seg_degree(dg), f"{path.name} sharded degree")
+            # The rank-sharded ingest equals the single-process parse and
+            # build_graph's chunk.
+            arena = distributed.ingest_arena(str(path))
+            bad = same_arrays(arena, g)
+            need(not bad, f"{path.name}: ingest_arena differs in {bad}")
+            sgi = distributed.ingest(str(path), mesh)
+            for f in dataclasses.fields(sg):
+                a, b = getattr(sgi, f.name), getattr(sg, f.name)
+                same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                need(same, f"{path.name}: distributed.ingest's {f.name} differs "
+                     "from build_graph's")
+            checks += 4
+        # No host sync between the all-gather and K6: the fused query runs
+        # whole (after a warm-up call) with CUDA's sync debug mode on.
+        g = parse_gfa_file(str(REPO / "tests" / "graphs" / "rand1.gfa"))
+        sg = sh.shard_device_graph(build_graph(g, "cuda"), mesh)
+        me = ext_mask(torch.ones(g.num_paths, dtype=torch.int32), "cuda")
+        fns["_fused"](sg, me)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fns["_fused"](sg, me)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    need(log.counts.get("fused", {}).get("seg_scan", 0) > 0,
+         "one rank: the fused sharded query never launched K6")
+    print(f"phase 6, one rank over NCCL (torch {torch.__version__}): {checks} "
+          "checks on the 8 fixtures equal the single-device --device cuda "
+          "answers (cumsum, scatter and fused scan, crossing matrix, ELL, ELL "
+          "batch, degree; ingest_arena and distributed.ingest equal the "
+          "parse and build_graph); the fused query ran under "
+          f"set_sync_debug_mode('error'); launches {log.counts}", flush=True)
+    return {"checks": checks, "launches": log.counts, "sync_debug": "error"}
+
+
+def sharded_kernel_rows(errs_out, k6, k9, k2, k5):
+    """The timed rank's kernel rows: K6 with its device carry on its
+    chunk, K9 on its tier-1 slice, K2 on its crossing-matrix slice, K5 on
+    its heavy slice at Q = 32, each first held against its plain version
+    on the same inputs."""
+    import torch
+
+    from pollen_tpu_torch.kernels import crossmat as cm
+    from pollen_tpu_torch.kernels import ellscan as ell
+    from pollen_tpu_torch.kernels import segscan
+
+    times = {}
+    path, rs, mask, carry, p, where = k6
+    n = path.shape[0]
+    ones = torch.ones((2, n), dtype=torch.int32, device="cuda")
+    times[SHARDED_ROWS[0]] = (
+        functools.partial(segscan.masked_depth_cumsums, path, rs, mask, carry),
+        functools.partial(segscan.masked_depth_cumsums_plain, path, rs, mask, carry),
+        where, bound(16 * n + p, core_ops=6 * n),
+        lambda: torch.cumsum(ones, 1, dtype=torch.int32),
+    )
+    slots, m, p, where = k9
+    k, n_pad = slots.shape
+    flat_call = functools.partial(ell.masked_ell_depth, slots, m)
+    times[SHARDED_ROWS[1]] = (
+        flat_call, functools.partial(ell.masked_ell_depth_plain, slots, m), where,
+        bound(4 * k * n_pad + 8 * n_pad + p, core_ops=4 * k * n_pad),
+        ell_library(SHARDED_ROWS[1], flat_call, m, p, flat=slots),
+    )
+    cross, mp, nibble, where = k2
+    rows, n = cross.shape
+    p_rows = 2 * rows if nibble else rows
+    a = cm.unpack_cross(cross) if nibble else cross.to(torch.int32)
+    fm = (cm.fold_mask(mp) if nibble else mp).float()[None]
+    a_lib = both_products(a).float()
+    live = (int(((mp[0::2] != 0) | (mp[1::2] != 0)).sum()) if nibble
+            else int((mp != 0).sum()))
+    times[SHARDED_ROWS[2]] = (
+        functools.partial(cm.masked_cross_depth, cross, mp, nibble=nibble),
+        functools.partial(cm.masked_cross_depth_plain, cross,
+                          cm.pad_mask(mp, p_rows), nibble=nibble),
+        where, bound(live * n + p_rows + 8 * n, tensor_ops=4 * 2 * live * n),
+        lambda: torch.matmul(fm, a_lib),
+    )
+    heavy, m32, p, where = k5
+    q = m32.shape[0]
+    mph = cm.pad_mask(m32, 2 * heavy.shape[0])
+    a_both = both_products(cm.unpack_cross(heavy))
+    library, _ = int_mm_or_matmul(cm.fold_mask(mph).to(torch.int8),
+                                  a_both.to(torch.int8))
+    times[SHARDED_ROWS[3]] = (
+        functools.partial(cm.batched_cross_depth, heavy, m32, nibble=True),
+        functools.partial(cm.batched_cross_depth_plain, heavy, mph, nibble=True),
+        where, bound(heavy.numel() + q * p + 8 * q * heavy.shape[1],
+                     tensor_ops=4 * q * heavy.numel() * 2),
+        library,
+    )
+    for name, (kern, plain, where, _, _) in times.items():
+        got, want = kern(), plain()
+        err = 0
+        for a, b in zip(got, want):
+            err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+        need(err == 0, f"{name} at {where}: max |kernel - plain| {err}")
+        errs_out[name] = err
+    out = time_kernels(times, f"{SHARDED_LABEL}, rank {SHARDED_TIMED_RANK}")
+    del a_lib, a_both
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(rank, world, device, bench_gfa):
+    """Phase 6's rank body (2 ranks on one card, gloo): wide_p2e17, then
+    chr8_third with its crossing matrix, then bench's GFA text; every
+    sharded answer gathered and held, exactly, against the single-device
+    routed query on this rank and ``NumpyReference``. Launch counts are
+    set to 0 before each sharded query and read after it. The timed rank
+    times the four kernels last, alone (the other rank has left)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.flatgfa import parse_gfa_file
+    from pollen_tpu_torch.ops import depth as depth_op
+    from pollen_tpu_torch.ops.degree import seg_degree
+    from pollen_tpu_torch.parallel import distributed
+    from pollen_tpu_torch.parallel import sharded as sh
+    from pollen_tpu_torch.parallel.collectives import all_reduce_sum, gather_shards
+    from pollen_tpu_torch.synth import synth_graph
+
+    t_start = time.perf_counter()
+    mesh = sh.make_mesh()
+    log = LaunchLog()
+    rng = np.random.default_rng(62)  # the same masks on every rank
+    times = {}
+    out = {"rank": rank, "backend": dist.get_backend(), "torch": torch.__version__,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "times": times}
+    chip = mesh.get_group("chip")
+
+    # wide_p2e17 (route "scan"): the fused query on K6, cumsum, scatter.
+    shape, opts, route = SCAN_SCALE["wide_p2e17"]
+    g = synth_graph(*shape)
+    dg = build_graph(g, device, **opts)
+    ref = NumpyReference(dg)
+    need(depth_op._best_masked_impl(dg) == route, "wide_p2e17 does not route scan")
+    sg = sh.shard_device_graph(dg, mesh)
+    straddles = int(all_reduce_sum(
+        (sg.run_start[:1] < sg.chunk_starts[sg.index]).to(torch.int32)))
+    need(straddles > 0, "wide_p2e17: no group straddles the chunk bound")
+    fns = {"fused": sh.sharded_seg_depth_fused_fn(mesh),
+           "cumsum": sh.sharded_seg_depth_fn(mesh),
+           "scatter": sh.sharded_seg_depth_scatter_fn(mesh)}
+    n = dg.num_segments
+    masks = scale_masks(g.num_paths, rng)
+    for i, m in enumerate(masks):
+        mt = torch.from_numpy(m).to(device)
+        me = ext_mask(mt, device)
+        want = ref(m)
+        single = depth_op.masked_seg_depth(dg, mt)
+        for k in range(2):
+            need_equal(single[k], want[k], f"wide_p2e17 single-device, mask {i}")
+        for name, fn in fns.items():
+            d, u = log.run(f"wide_p2e17 {name}", lambda: fn(sg, me))
+            if name == "scatter":
+                d, u = gather_shards(d, chip)[:n], gather_shards(u, chip)[:n]
+            need_equal(d, want[0], f"wide_p2e17 sharded {name} depth, mask {i}")
+            need_equal(u, want[1], f"wide_p2e17 sharded {name} uniq, mask {i}")
+    mt = torch.from_numpy(masks[3]).to(device)
+    me = ext_mask(mt, device)
+    _, single_fn = routed_device_fn(dg, mt)
+    for name, fn in fns.items():
+        time_pair(times, f"wide_p2e17 {name}", functools.partial(fn, sg, me),
+                  single_fn if name == "fused" else None)
+    kargs = {"k6": (*sh.fused_scan_args(sg, me), g.num_paths + 1,
+                    f"wide_p2e17 chunk {sg.index} of {world} ({sg.chunk} steps), "
+                    "device carry")}
+    out["wide_p2e17"] = {"straddles": straddles, "masks": len(masks),
+                         "chunk": sg.chunk}
+    del dg, sg, ref, g, single_fn
+    torch.cuda.empty_cache()
+
+    # chr8_third with its crossing matrix: ELL (three tiers and heavy),
+    # its Q = 32 batch, the crossing matrix.
+    g = synth_graph(*SCALE["chr8_third"])
+    dg = build_graph(g, device, cross_matrix="always")
+    ref = NumpyReference(dg)
+    p, n = g.num_paths, dg.num_segments
+    se = sh.shard_ell_inputs(dg, mesh)
+    need(se.ell2 is not None and se.ell3 is not None and se.heavy is not None,
+         "chr8_third: the ELL index is not three tiers and heavy")
+    sc = sh.shard_cross_inputs(dg, mesh)
+    need(sc is not None, "chr8_third: no crossing matrix")
+    has = dict(has_heavy=True, has_mid=True, has_mid2=True)
+    ell_fn = sh.sharded_ell_depth_fn(mesh, **has)
+    batch_fn = sh.sharded_ell_depth_batch_fn(mesh, **has)
+    cross_fn = sh.sharded_cross_depth_fn(mesh, nibble=sc.nibble)
+
+    def padded(mt):
+        mp = torch.zeros(sc.num_paths_padded, dtype=torch.int32, device=device)
+        mp[:p] = mt.to(torch.int32)
+        return mp
+
+    masks = scale_masks(p, rng)
+    for i, m in enumerate(masks):
+        mt = torch.from_numpy(m).to(device)
+        want = ref(m)
+        single = depth_op.masked_seg_depth(dg, mt)
+        for k in range(2):
+            need_equal(single[k], want[k], f"chr8_third single-device, mask {i}")
+        parts = log.run("chr8_third ell", lambda: ell_fn(*sh.ell_args(se, mt.to(torch.int32))))
+        d, u = sh.compose_ell_parts_natural(dg, [gather_shards(x) for x in parts], **has)
+        need_equal(d, want[0], f"chr8_third sharded ELL depth, mask {i}")
+        need_equal(u, want[1], f"chr8_third sharded ELL uniq, mask {i}")
+        mp = padded(mt)
+        d, u = log.run("chr8_third cross",
+                       lambda: cross_fn(sc.cross, sc.res, sc.res_seg, mp))
+        need_equal(gather_shards(d)[:n], want[0], f"chr8_third sharded cross depth, mask {i}")
+        need_equal(gather_shards(u)[:n], want[1], f"chr8_third sharded cross uniq, mask {i}")
+    m32_np = batch_masks(p, rng)
+    m32 = torch.from_numpy(m32_np.astype(np.int32)).to(device)
+    parts = log.run("chr8_third ell batch", lambda: batch_fn(*sh.ell_args(se, m32)))
+    parts = [gather_shards(x) for x in parts]
+    single = depth_op.seg_depth_with_uniq_batch(dg, m32.bool())
+    for q in range(m32.shape[0]):
+        d, u = sh.compose_ell_parts_natural(dg, [x[q] for x in parts], **has)
+        want = ref(m32_np[q])
+        for got, one, nump, what in ((d, single[0][q], want[0], "depth"),
+                                     (u, single[1][q], want[1], "uniq")):
+            need_equal(got, one, f"chr8_third sharded ELL batch {what}, query {q}")
+            need_equal(got, nump, f"chr8_third sharded ELL batch {what}, query {q}")
+    mt = torch.from_numpy(masks[3]).to(device)
+    m_int, mp = mt.to(torch.int32), padded(mt)
+    route, single_fn = routed_device_fn(dg, mt)
+    time_pair(times, "chr8_third ell", lambda: ell_fn(*sh.ell_args(se, m_int)), single_fn)
+    time_pair(times, "chr8_third cross",
+              lambda: cross_fn(sc.cross, sc.res, sc.res_seg, mp),
+              functools.partial(depth_op.seg_depth_with_uniq_cross, dg, mt))
+    b_route, single_b = routed_batch_fn(dg, m32.bool())
+    time_pair(times, "chr8_third ell batch Q=32",
+              lambda: batch_fn(*sh.ell_args(se, m32)), single_b)
+    for name, t in (("tier 1", se.ell), ("tier 2", se.ell2), ("tier 3", se.ell3)):
+        fn = functools.partial(sh.ell_tiers_batch, t, m32)
+        times[f"chr8_third batched {name} plain, Q=32"] = {"plain": dict(
+            wall_us=lockstep_ms(fn) * 1e3,
+            busy_us=sum(device_profile(fn, reps=5).values()) or None,
+            slots=list(t.shape))}
+    out["chr8_third"] = {"routes": {"single": route, "batch": b_route},
+                         "masks": len(masks), "batch": int(m32.shape[0]),
+                         "ell_widths": [se.light_width, se.mid_width,
+                                        se.mid2_width, se.heavy_width],
+                         "cross_width": sc.col_width}
+    kargs["k9"] = (se.ell, m_int, p, f"chr8_third tier-1 slice {tuple(se.ell.shape)}")
+    kargs["k2"] = (sc.cross, mp, sc.nibble,
+                   f"chr8_third crossing-matrix slice {tuple(sc.cross.shape)}")
+    kargs["k5"] = (se.heavy, m32, p, f"chr8_third heavy slice {tuple(se.heavy.shape)}, Q=32")
+    del dg, ref, g, single_fn, single_b, parts
+    torch.cuda.empty_cache()
+
+    # bench with links, as GFA text: the byte-range ingest's exchange, then
+    # the sharded degree.
+    t0 = time.perf_counter()
+    arena = distributed.ingest_arena(bench_gfa)
+    exchange_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    direct = parse_gfa_file(bench_gfa)
+    parse_s = time.perf_counter() - t0
+    bad = same_arrays(arena, direct)
+    need(not bad, f"bench: the 2-rank ingest_arena differs from the parse in {bad}")
+    dg = build_graph(direct, device)
+    deg_fn = sh.sharded_degree_fn(mesh)
+    inputs = sh.shard_degree_inputs(dg, mesh)
+    deg = log.run("bench degree", lambda: deg_fn(*inputs))
+    need_equal(deg, seg_degree(dg), "bench sharded degree vs seg_degree")
+    ends = np.concatenate([direct.link_from >> 1, direct.link_to >> 1])
+    need_equal(deg, np.bincount(ends.astype(np.int64), minlength=dg.num_segments),
+               "bench sharded degree vs numpy")
+    time_pair(times, "bench degree", lambda: deg_fn(*inputs),
+              functools.partial(seg_degree, dg))
+    out["bench"] = {"exchange_s": exchange_s, "parse_s": parse_s,
+                    "gfa_bytes": os.path.getsize(bench_gfa),
+                    "links": int(direct.num_links)}
+    out["launches"] = log.counts
+    del dg, inputs
+    torch.cuda.empty_cache()
+    out["seconds_before_kernels"] = time.perf_counter() - t_start
+    if rank == SHARDED_TIMED_RANK:
+        out["kernel_errs"] = {}
+        out["kernel_times"] = sharded_kernel_rows(out["kernel_errs"], **kargs)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def phase_sharded(graphs: dict, card: str) -> dict:
+    """Phase 6: one rank over NCCL here, then two ranks on the one card
+    over gloo at full size (sharded_rank); the launch gates of the
+    sharded path; its ``{"sharded": ...}`` line's record."""
+    import torch
+
+    from pollen_tpu_torch import native
+    from pollen_tpu_torch.parallel import launch
+
+    out = {"torch": torch.__version__, "label": f"{SHARDED_LABEL} [{card}]"}
+    out["one_rank"] = phase_sharded_one_rank()
+    with tempfile.TemporaryDirectory() as tmp:
+        gfa = pathlib.Path(tmp) / "bench.gfa"
+        g, _, _ = add_path_links(graphs["bench"][0])
+        need(native.emit_gfa_file_native(text_arena(g), str(gfa)),
+             "bench: the native file emit fell back")
+        t0 = time.perf_counter()
+        ranks = launch.run(sharded_rank, SHARDED_RANKS, str(gfa), device="cuda",
+                           deadline=SHARDED_DEADLINE)
+        out["two_ranks_s"] = time.perf_counter() - t0
+    out["two_ranks"] = ranks
+    for r in ranks:
+        need(r["backend"] == "gloo",
+             f"rank {r['rank']} of two on one card ran {r['backend']}, not gloo")
+        c = r["launches"]
+        for label, key in (("wide_p2e17 fused", "seg_scan"),
+                           ("chr8_third ell", "ell_flat"),
+                           ("chr8_third ell", "cross"),
+                           ("chr8_third ell batch", "cross_batch"),
+                           ("chr8_third cross", "cross")):
+            need(c.get(label, {}).get(key, 0) > 0,
+                 f"rank {r['rank']}: the sharded {label} query never launched "
+                 f"{key}")
+    for r in ranks:
+        print(f"phase 6, rank {r['rank']} of {SHARDED_RANKS} over {r['backend']} "
+              f"(torch {r['torch']}, mesh {r['mesh']}), {SHARDED_LABEL} "
+              f"[{card}]: wide_p2e17 {r['wide_p2e17']}, chr8_third "
+              f"{r['chr8_third']}, bench {r['bench']}; launches {r['launches']}; "
+              f"{r['seconds']:.1f} s", flush=True)
+        for label, row in r["times"].items():
+            print(f"  rank {r['rank']} {label} [{SHARDED_LABEL}; {card}]: " + "; ".join(
+                f"{k} wall {v['wall_us']:.2f} us, busy "
+                + (f"{v['busy_us']:.2f} us" if v.get("busy_us") else "not measured")
+                for k, v in row.items()), flush=True)
+    return out
+
+
 def main() -> int:
     if not (REPO / "pollen_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -4208,6 +4785,20 @@ def main() -> int:
     phase5["seconds"] = time.perf_counter() - t5
     stamp("native host code, the spec oracle, the permuted query and the "
           "probes done")
+    t6 = time.perf_counter()
+    sharded = phase_sharded(graphs, card)
+    sharded["seconds"] = time.perf_counter() - t6
+    timed = sharded["two_ranks"][SHARDED_TIMED_RANK]
+    timing.update(timed["kernel_times"])
+    for name in SHARDED_ROWS:
+        key = KERNELS[name][2]
+        errs.max[name] = timed["kernel_errs"][name]
+        runs = [sharded["one_rank"]["launches"]]
+        runs += [r["launches"] for r in sharded["two_ranks"]]
+        launches[name] = sum(c.get(key, 0) for run in runs for c in run.values())
+        need(launches[name] > 0, f"{name} was never launched by phase 6")
+    stamp("phase 6: the sharded path (one rank over NCCL; two ranks on the "
+          "card over gloo) done")
     rows = [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=launches[name], max_abs_err=errs.max[name],
@@ -4218,6 +4809,7 @@ def main() -> int:
     print(json.dumps({"device_ops": device_ops}))
     print(json.dumps({"api_shell": api}))
     print(json.dumps({"native_spec_probes": phase5}))
+    print(json.dumps({"sharded": sharded}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@
 //                        cumsums of w = mask[path] and of the first
 //                        selected step of each (segment, path) group.
 //                        Replaces pollen_tpu/kernels/segscan.py _kernel
-//                        (K6), head_carry included.
+//                        (K6), head_carry included (a host int, or an
+//                        int32 on the device for the sharded query).
 //   pollen_run_scan      over the run index: inclusive cumsums of
 //                        mask[run_path] * run_count and of mask[run_path].
 //                        Replaces pollen_tpu/kernels/runscan.py _kernel
@@ -84,6 +85,9 @@ struct SegScanOp {
   const int* words;
   int n_words;
   int head_carry;
+  // The carry as an int32 scalar on the device (a sharded query's
+  // look-back result); null means head_carry above.
+  const int* head_carry_dev;
 
   static __device__ __forceinline__ Agg identity() { return {0, 0, 0, 0, 0}; }
   static __device__ __forceinline__ Agg combine(const Agg& a, const Agg& b) {
@@ -104,8 +108,10 @@ struct SegScanOp {
   // The prefix over [0, i] applied to the state (selected 0, open group
   // head_carry, first flags 0).
   __device__ __forceinline__ void emit(const Agg& p, int* o0, int* o1) const {
+    const int carry =
+        head_carry_dev != nullptr ? __ldg(head_carry_dev) : head_carry;
     *o0 = p.sw;
-    *o1 = p.lf - (int)(head_carry > 0 && p.l > 0);
+    *o1 = p.lf - (int)(carry > 0 && p.l > 0);
   }
   // Look-back descriptor: every count lies in [0, n] with n < 2^31, so
   // each takes 31 bits and the top bits hold hs and the 2-bit flag.
@@ -206,10 +212,13 @@ long long pollen_scan_scratch_bytes(long long n) {
   return single_scan_scratch_bytes(n);
 }
 
+// head_carry_dev: null, or an int32 on the device that replaces
+// head_carry (read by the kernel, so the caller need not sync).
 int pollen_seg_scan(const void* path, const void* run_start, long long n,
-                    int head_carry, const void* mask, int elem_bytes,
-                    int n_paths, void* words, int n_words, void* scratch,
-                    void* csum_w, void* csum_first, void* stream) {
+                    int head_carry, const void* head_carry_dev,
+                    const void* mask, int elem_bytes, int n_paths,
+                    void* words, int n_words, void* scratch, void* csum_w,
+                    void* csum_first, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* w = static_cast<const int*>(words);
   SegScanOp op{static_cast<const int*>(path),
@@ -219,7 +228,8 @@ int pollen_seg_scan(const void* path, const void* run_start, long long n,
                n,
                w,
                n_words,
-               head_carry};
+               head_carry,
+               static_cast<const int*>(head_carry_dev)};
   const cudaError_t err =
       launch_scan_single(op, mask, elem_bytes, n_paths, scratch, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());

@@ -93,7 +93,7 @@ SIGNATURES = {
     # scan.cu
     "pollen_scan_scratch_bytes": (_L,),  # n
     "pollen_seg_scan": (
-        _P, _P, _L, _I,  # path, run_start, n, head_carry
+        _P, _P, _L, _I, _P,  # path, run_start, n, head_carry, its device copy
         *_MASK,
         _P, _P, _P, _P,  # scratch, csum_w, csum_first, stream
     ),

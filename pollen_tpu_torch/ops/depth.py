@@ -14,7 +14,7 @@ runs a route's plain PyTorch version on any device (the reference's
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -412,23 +412,31 @@ def _cross_beats_scan(dg: TorchGraph) -> bool:
     return _best_masked_impl(dg) == "cross"
 
 
+def masked_route_fn(dg: TorchGraph) -> Tuple[str, Callable]:
+    """The single masked query's route and its device part, called as
+    ``fn(dg, path_mask, plain=False)``: int32 (depth, uniq) on the
+    graph's device, or the ELL route's per-class parts."""
+    route = _best_masked_impl(dg)
+    # "xla" too takes the scan: the reference's accelerator route.
+    fns = {
+        "ell": seg_depth_with_uniq_ell_parts,
+        "cross": seg_depth_with_uniq_cross,
+        "runs": seg_depth_with_uniq_runs_fused,
+    }
+    return route, fns.get(route, seg_depth_with_uniq_fused)
+
+
 def masked_seg_depth(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Routed masked (depth, uniq) per segment, as host int32 arrays."""
     path_mask = path_mask.to(dg.device)
-    best = _best_masked_impl(dg)
-    on_cuda = dg.device.type == "cuda"
-    if best == "ell":
-        depth, uniq = seg_depth_with_uniq_ell(dg, path_mask, plain=not on_cuda)
-    elif best == "cross":
-        depth, uniq = seg_depth_with_uniq_cross(
-            dg, path_mask, plain=not on_cuda
-        )
-    elif best == "runs":
-        depth, uniq = seg_depth_with_uniq_runs_fused(dg, path_mask)
-    else:  # "scan" or "xla": the reference's accelerator takes the scan
-        depth, uniq = seg_depth_with_uniq_fused(dg, path_mask)
+    route, fn = masked_route_fn(dg)
+    plain = dg.device.type != "cuda"
+    if route == "ell":
+        # Composed and un-permuted on the host.
+        fn = seg_depth_with_uniq_ell
+    depth, uniq = fn(dg, path_mask, plain=plain)
     return depth.cpu().numpy(), uniq.cpu().numpy()
 
 
@@ -444,6 +452,19 @@ def batch_route(dg: TorchGraph) -> str:
     return "runs"
 
 
+def batch_route_fn(dg: TorchGraph) -> Tuple[str, Callable]:
+    """The batch's route (:func:`batch_route`) and its device part,
+    called as ``fn(dg, path_masks, plain=False)``: int32 (Q, N) pairs on
+    the graph's device, or the ELL route's per-class parts."""
+    route = batch_route(dg)
+    fns = {
+        "ell": seg_depth_with_uniq_ell_batch_parts,
+        "cross": seg_depth_with_uniq_cross_batch,
+        "runs": seg_depth_with_uniq_runs_batch,
+    }
+    return route, fns[route]
+
+
 def seg_depth_with_uniq_batch(
     dg: TorchGraph, path_masks: torch.Tensor
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -452,16 +473,12 @@ def seg_depth_with_uniq_batch(
     :func:`batch_route`. The serving shape: one resident graph, a
     stream of subset queries."""
     path_masks = path_masks.to(dg.device)
-    route = batch_route(dg)
-    on_cuda = dg.device.type == "cuda"
+    route, fn = batch_route_fn(dg)
+    plain = dg.device.type != "cuda"
     if route == "ell":
-        return seg_depth_with_uniq_ell_batch(dg, path_masks, plain=not on_cuda)
-    if route == "cross":
-        depth, uniq = seg_depth_with_uniq_cross_batch(
-            dg, path_masks, plain=not on_cuda
-        )
-    else:
-        depth, uniq = seg_depth_with_uniq_runs_batch(dg, path_masks)
+        # Composed on the host ELL_BATCH_CHUNK masks at a time.
+        return seg_depth_with_uniq_ell_batch(dg, path_masks, plain=plain)
+    depth, uniq = fn(dg, path_masks, plain=plain)
     return depth.cpu().numpy(), uniq.cpu().numpy()
 
 
