@@ -170,7 +170,8 @@ two ranks sharing the one card over gloo (NCCL refuses two ranks on one
 device), spawned with a deadline, at full size: wide_p2e17's fused
 query on K6 (the chunk bound straddled by a group), the cumsum and the
 scatter forms under 8 masks; chr8_third's sharded ELL (three tiers and
-heavy: K9, K2) under 8 masks and its batch at Q = 32 (plain batched
+heavy: K9 once for the three tiers, K2) under 8 masks and its batch at
+Q = 32 (plain batched
 tiers, K5 on the heavy slice); chr8_third's crossing matrix (256 MiB,
 K2) under 8 masks; bench's degree; and ``ingest_arena`` over bench's
 GFA text (38 MB), each rank parsing its own byte range, equal to the
@@ -180,8 +181,9 @@ and ``NumpyReference``. Each sharded query's wall and busy time are
 printed per rank beside the single-device routed query's ("2 ranks on
 one H100": two ranks sharing a card, not a scaling result), with the
 batched tiers' plain time and the exchange's seconds; rank 1 then
-times K6 (device carry), K9, K2 and K5 on its own piece, their rows of
-the kernels' line. Its numbers are the ``{"sharded": ...}`` line.
+times K6 (device carry), K9 (its tier-1 slice, and its three tier slices
+in one launch), K2 and K5 on its own piece, their rows of the kernels'
+line. Its numbers are the ``{"sharded": ...}`` line.
 
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
@@ -191,8 +193,8 @@ ELL path; the probe path; phase 4's API queries, K1, and its entry,
 K2; phase 5's permuted query on each graph, and its probes; phase 6's
 sharded queries, on each rank) and read right after it: every kernel
 must have been launched by its path (phase 6: K6 by the fused query,
-K9 and K2 by the ELL query, K5 by its batch, K2 by the crossing
-matrix's). Each kernel's time is its CUDA-event
+K9 and K2 by the ELL query, K9 exactly once a query on every rank and
+in the one-rank run, K5 by its batch, K2 by the crossing matrix's). Each kernel's time is its CUDA-event
 wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
 wall, its bound and its library call (wall and replay): one PyTorch
@@ -279,11 +281,13 @@ KERNELS = {
 SHARDED_ROWS = (
     "seg_scan (K6), sharded fused, device carry",
     "ell_flat (K9), sharded ELL tier 1",
+    "ell_flat (K9), sharded ELL tiers 1-3, one launch",
     "cross (K2), sharded crossing matrix",
     "cross_batch (K5), sharded ELL heavy, Q=32",
 )
 KERNELS.update(zip(SHARDED_ROWS, (
     (SRC_SCAN, "pollen_tpu/kernels/segscan.py:129", "seg_scan"),
+    (SRC, "pollen_tpu/kernels/ellscan.py:326", "ell_flat"),
     (SRC, "pollen_tpu/kernels/ellscan.py:326", "ell_flat"),
     (SRC, "pollen_tpu/kernels/crossmat.py:102", "cross"),
     (SRC_BATCH, "pollen_tpu/kernels/crossmat.py:290", "cross_batch"),
@@ -971,6 +975,112 @@ def phase_kernels_tier(errs: Errors):
           "bytes), of 300 paths and all ones: all equal plain (tolerance "
           "0); one launch a call (counter), one ell_tier_kernel and no "
           "packing launch (profiler); a misaligned tier refused", flush=True)
+
+
+# K9's edges: stored words a column across the tier tile's chunks of 1,
+# 2, 4 and 8 words; column counts whose last 1,024-column tile is whole,
+# cut to 128 columns, and 128 past 294,912 (the sharded tier-1 slice);
+# path ids in the first, middle and last mask words, three with the slot
+# word's sign bit set.
+FLAT_KS = (1, 2, 3, 5, 9, 16)
+FLAT_COLS = (128, 1152, 294912 + 128)
+FLAT_IDS = (5, 32767, 32768, 40000, 65535)
+
+
+def flat_slots(gen, k, n, offset=0):
+    """Seeded int32[k, n] flat slots on the card (any 32-bit word is a
+    slot), 30% empty, FLAT_IDS planted in the first and the last
+    columns; ``offset`` ints into a larger buffer (offset 1: a view 4
+    bytes off a 16-byte boundary)."""
+    import torch
+
+    v = torch.randint(-2**31, 2**31, (k, n), dtype=torch.int64, generator=gen)
+    v[torch.rand(v.shape, generator=gen) < 0.3] = 0
+    ids = torch.tensor(FLAT_IDS, dtype=torch.int64)
+    v[0, :ids.numel()] = ids << 16 | torch.arange(1, ids.numel() + 1)
+    v[-1, -ids.numel():] = ids << 16 | 0xFFFF
+    v = (v - ((v >= 2**31).long() << 32)).to(torch.int32)
+    buf = torch.empty(k * n + offset, dtype=torch.int32, device="cuda")
+    out = buf[offset:].view(k, n)
+    out.copy_(v.cuda())
+    return out
+
+
+def phase_kernels_flat(errs: Errors):
+    """Phase 1 (K9's edges), each call against its plain version,
+    tolerance 0: random flat slots at k = FLAT_KS and FLAT_COLS columns
+    with the path ids FLAT_IDS planted; seeded masks of 65,536 paths
+    (int32 and bytes), of 300 and of 70,000 paths and the all-ones mask;
+    a view 4 bytes off a 16-byte boundary (the 4-byte-load instance);
+    2 and 3 tiers in one call, one of them misaligned; one launch a
+    call (the wrapper's counter) and, by the profiler, one
+    ell_flat_kernel and no packing launch."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch.kernels import ellscan as ell
+
+    name = "ell_flat (K9)"
+    rng = np.random.default_rng(19)
+    gen = torch.Generator().manual_seed(19)
+    masks = {
+        "seeded 65536 int32": torch.from_numpy(
+            rng.integers(0, 2, 65536).astype(np.int32)).cuda(),
+        "seeded 65536 bytes": torch.from_numpy(rng.random(65536) < 0.5).cuda(),
+        "seeded 300": torch.from_numpy(rng.random(300) < 0.5).cuda(),
+        "seeded 70000 int32": torch.from_numpy(
+            rng.integers(0, 2, 70000).astype(np.int32)).cuda(),
+        "all ones": torch.ones(65536, dtype=torch.int32, device="cuda"),
+    }
+
+    def check(tiers, what):
+        for label, m in masks.items():
+            one_launch(
+                errs, name,
+                functools.partial(ell.masked_ell_depth_tiers, tiers, m),
+                lambda: tuple(x for e in tiers
+                              for x in ell.masked_ell_depth_plain(e, m)),
+                "ell_flat", ell.launches, f"{what}, {label} mask",
+            )
+
+    def profile(tiers, what):
+        prof = device_profile(functools.partial(
+            ell.masked_ell_depth_tiers, tiers, masks["all ones"]), reps=3)
+        print(f"{name} call, {what}: {describe_profile(prof)}", flush=True)
+        need(not prof or set(prof) == {"ell_flat_kernel"},
+             f"{name} is not one ell_flat_kernel launch: {sorted(prof)}")
+
+    for n in FLAT_COLS:
+        for k in FLAT_KS:
+            e = flat_slots(gen, k, n)
+            check([e], f"k={k}, {n} columns")
+            if k in (2, 16) and n == FLAT_COLS[-1]:
+                profile([e], f"k={k}, {n} columns")
+    for k in (1, 5):
+        e = flat_slots(gen, k, 1152, offset=1)
+        need(e.data_ptr() % 16 == 4, "the misaligned view is not 4 bytes off")
+        check([e], f"k={k}, 1152 columns, 4 bytes off 16")
+        profile([e], f"k={k}, 1152 columns, 4 bytes off 16")
+    for tiers in (
+        [flat_slots(gen, 1, FLAT_COLS[-1]), flat_slots(gen, 2, 1152)],
+        [flat_slots(gen, 3, 128), flat_slots(gen, 9, 1152),
+         flat_slots(gen, 16, FLAT_COLS[-1])],
+        [flat_slots(gen, 2, 1152, offset=1), flat_slots(gen, 5, 128),
+         flat_slots(gen, 1, FLAT_COLS[-1])],
+    ):
+        what = (f"{len(tiers)} tiers in one call, (k, columns) "
+                f"{[tuple(e.shape) for e in tiers]}, first 4 bytes off 16 "
+                f"{tiers[0].data_ptr() % 16 != 0}")
+        check(tiers, what)
+        profile(tiers, what)
+    torch.cuda.synchronize()
+    print(f"phase 1 (K9): k = {', '.join(map(str, FLAT_KS))} stored words at "
+          f"{', '.join(map(str, FLAT_COLS))} columns, path ids "
+          f"{', '.join(map(str, FLAT_IDS))}, masks of 65536 paths (int32 and "
+          "bytes), of 300 and 70000 paths and all ones; views 4 bytes off "
+          "16; 2 and 3 tiers a call: all equal plain (tolerance 0); one "
+          "launch a call (counter), one ell_flat_kernel and no packing "
+          "launch (profiler)", flush=True)
 
 
 def phase_kernels_cross(errs: Errors):
@@ -4225,10 +4335,12 @@ def lockstep_ms(fn, reps=10, warm=2):
 
 class LaunchLog:
     """Launch counts by query: the counts set to 0 just before each call
-    of a sharded query and read just after it, summed by label."""
+    of a sharded query and read just after it, summed by label, and the
+    calls by label."""
 
     def __init__(self):
         self.counts = {}
+        self.runs = {}
 
     def run(self, label, fn):
         import torch
@@ -4236,6 +4348,7 @@ class LaunchLog:
         reset_launches()
         out = fn()
         torch.cuda.synchronize()
+        self.runs[label] = self.runs.get(label, 0) + 1
         for k, v in launch_counts().items():
             if v:
                 row = self.counts.setdefault(label, {})
@@ -4369,6 +4482,9 @@ def phase_sharded_one_rank() -> dict:
         torch.cuda.synchronize()
     need(log.counts.get("fused", {}).get("seg_scan", 0) > 0,
          "one rank: the fused sharded query never launched K6")
+    need(log.counts.get("ell", {}).get("ell_flat", 0) == log.runs["ell"],
+         f"one rank: {log.counts.get('ell', {}).get('ell_flat', 0)} K9 "
+         f"launches in {log.runs['ell']} sharded ELL queries, want one each")
     print(f"phase 6, one rank over NCCL (torch {torch.__version__}): {checks} "
           "checks on the 8 fixtures equal the single-device --device cuda "
           "answers (cumsum, scatter and fused scan, crossing matrix, ELL, ELL "
@@ -4378,11 +4494,12 @@ def phase_sharded_one_rank() -> dict:
     return {"checks": checks, "launches": log.counts, "sync_debug": "error"}
 
 
-def sharded_kernel_rows(errs_out, k6, k9, k2, k5):
+def sharded_kernel_rows(errs_out, k6, k9, k9_tiers, k2, k5):
     """The timed rank's kernel rows: K6 with its device carry on its
-    chunk, K9 on its tier-1 slice, K2 on its crossing-matrix slice, K5 on
-    its heavy slice at Q = 32, each first held against its plain version
-    on the same inputs."""
+    chunk, K9 on its tier-1 slice and on its three tier slices in one
+    launch (the sharded ELL query's call), K2 on its crossing-matrix
+    slice, K5 on its heavy slice at Q = 32, each first held against its
+    plain version on the same inputs."""
     import torch
 
     from pollen_tpu_torch.kernels import crossmat as cm
@@ -4407,6 +4524,21 @@ def sharded_kernel_rows(errs_out, k6, k9, k2, k5):
         bound(4 * k * n_pad + 8 * n_pad + p, core_ops=4 * k * n_pad),
         ell_library(SHARDED_ROWS[1], flat_call, m, p, flat=slots),
     )
+    tiers, m, p, where = k9_tiers
+    cells = sum(e.numel() for e in tiers)
+    cols = sum(e.shape[1] for e in tiers)
+    tiers_call = functools.partial(ell.masked_ell_depth_tiers, tiers, m)
+    # The yardstick's one flat block: the tiers side by side, each padded
+    # with empty slots to the largest k (same outputs, in the same order).
+    k_max = max(e.shape[0] for e in tiers)
+    side = torch.cat([torch.nn.functional.pad(e, (0, 0, 0, k_max - e.shape[0]))
+                      for e in tiers], dim=1)
+    times[SHARDED_ROWS[2]] = (
+        tiers_call,
+        lambda: tuple(x for e in tiers for x in ell.masked_ell_depth_plain(e, m)),
+        where, bound(4 * cells + 8 * cols + p, core_ops=4 * cells),
+        ell_library(SHARDED_ROWS[2], tiers_call, m, p, flat=side),
+    )
     cross, mp, nibble, where = k2
     rows, n = cross.shape
     p_rows = 2 * rows if nibble else rows
@@ -4415,7 +4547,7 @@ def sharded_kernel_rows(errs_out, k6, k9, k2, k5):
     a_lib = both_products(a).float()
     live = (int(((mp[0::2] != 0) | (mp[1::2] != 0)).sum()) if nibble
             else int((mp != 0).sum()))
-    times[SHARDED_ROWS[2]] = (
+    times[SHARDED_ROWS[3]] = (
         functools.partial(cm.masked_cross_depth, cross, mp, nibble=nibble),
         functools.partial(cm.masked_cross_depth_plain, cross,
                           cm.pad_mask(mp, p_rows), nibble=nibble),
@@ -4428,7 +4560,7 @@ def sharded_kernel_rows(errs_out, k6, k9, k2, k5):
     a_both = both_products(cm.unpack_cross(heavy))
     library, _ = int_mm_or_matmul(cm.fold_mask(mph).to(torch.int8),
                                   a_both.to(torch.int8))
-    times[SHARDED_ROWS[3]] = (
+    times[SHARDED_ROWS[4]] = (
         functools.partial(cm.batched_cross_depth, heavy, m32, nibble=True),
         functools.partial(cm.batched_cross_depth_plain, heavy, mph, nibble=True),
         where, bound(heavy.numel() + q * p + 8 * q * heavy.shape[1],
@@ -4590,6 +4722,9 @@ def sharded_rank(rank, world, device, bench_gfa):
                                         se.mid2_width, se.heavy_width],
                          "cross_width": sc.col_width}
     kargs["k9"] = (se.ell, m_int, p, f"chr8_third tier-1 slice {tuple(se.ell.shape)}")
+    kargs["k9_tiers"] = ([se.ell, se.ell2, se.ell3], m_int, p,
+                         "chr8_third tier slices "
+                         f"{[tuple(e.shape) for e in (se.ell, se.ell2, se.ell3)]}")
     kargs["k2"] = (sc.cross, mp, sc.nibble,
                    f"chr8_third crossing-matrix slice {tuple(sc.cross.shape)}")
     kargs["k5"] = (se.heavy, m32, p, f"chr8_third heavy slice {tuple(se.heavy.shape)}, Q=32")
@@ -4620,6 +4755,7 @@ def sharded_rank(rank, world, device, bench_gfa):
                     "gfa_bytes": os.path.getsize(bench_gfa),
                     "links": int(direct.num_links)}
     out["launches"] = log.counts
+    out["runs"] = log.runs
     del dg, inputs
     torch.cuda.empty_cache()
     out["seconds_before_kernels"] = time.perf_counter() - t_start
@@ -4663,6 +4799,9 @@ def phase_sharded(graphs: dict, card: str) -> dict:
             need(c.get(label, {}).get(key, 0) > 0,
                  f"rank {r['rank']}: the sharded {label} query never launched "
                  f"{key}")
+        n_k9, n_q = c["chr8_third ell"].get("ell_flat", 0), r["runs"]["chr8_third ell"]
+        need(n_k9 == n_q, f"rank {r['rank']}: {n_k9} K9 launches in {n_q} "
+             "sharded ELL queries, want one each")
     for r in ranks:
         print(f"phase 6, rank {r['rank']} of {SHARDED_RANKS} over {r['backend']} "
               f"(torch {r['torch']}, mesh {r['mesh']}), {SHARDED_LABEL} "
@@ -4714,6 +4853,7 @@ def main() -> int:
     phase_kernels_cross_batch(errs)
     phase_kernels_cross(errs)
     phase_kernels_tier(errs)
+    phase_kernels_flat(errs)
     phase_kernels_scan(errs)
     phase_kernels_flat_probes(errs)
     stamp("phase 1 done")

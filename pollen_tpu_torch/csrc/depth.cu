@@ -1,7 +1,7 @@
 // Masked segment depth over the resident ELL / crossing-matrix indexes,
-// written for Hopper (sm_90a). Four entry points; K9 reads mask bit
-// words packed ahead of it, K1, K2 and K3 read the raw mask, K1 runs
-// K2's tiles on its heavy block, and K3 is K1's tier phase alone:
+// written for Hopper (sm_90a). Four entry points, each one launch that
+// reads the raw mask itself; K1 runs K2's tiles on its heavy block, and
+// K3 and K9 are K1's tier phase alone, on the tall and the flat layout:
 //
 //   pollen_ell_tier     one tall tier of ELL slots, 32-bit or pack16, in
 //                       ONE launch. Replaces the TPU kernel
@@ -13,9 +13,9 @@
 //   pollen_ell_splitn   up to three tier phases plus the heavy phase in
 //                       ONE launch, no packing launch ahead. Replaces
 //                       pollen_tpu/kernels/ellscan.py _kernel_splitn (K1).
-//   pollen_ell_flat     one tier in the flat (K, N_pad) layout of
-//                       build_ell. Replaces pollen_tpu/kernels/ellscan.py
-//                       _kernel (K9).
+//   pollen_ell_flat     1-3 tiers in the flat (K, N_pad) layout of
+//                       build_ell, in ONE launch. Replaces
+//                       pollen_tpu/kernels/ellscan.py _kernel (K9).
 //
 // What bounds them on the H100: all four are integer work with about
 // one multiply-add per byte read, far below the card's compute roofline,
@@ -23,19 +23,24 @@
 // by launch latency: the whole bench-shape index is ~2 MB and sits in
 // L2). The design keeps the bytes minimal and the accesses coalesced:
 //
-//   * K9 takes the query mask packed into bit words (path p -> bit p%32
-//     of word p/32) by a one-ballot-per-warp launch ahead of the kernel,
-//     so the caller hands over the raw 0/1 mask and pays one host call.
-//     Each block stages the words in shared memory (8 KB at 2^16 paths)
-//     and looks a path's bit up directly. The TPU kernel's select
-//     tournament over scalar words has no place here. K1, K2 and K3 read
-//     the raw mask themselves (below).
-//   * Flat tier: one thread per column, its K slot words read down the
-//     column at ell[kk * n_pad + c], so each warp's load is one 128-byte
-//     line and every word is read once; outputs need no reordering. The
-//     TPU gave this layout up because its (1, width) stores pad to 8
-//     sublanes; on the GPU it is coalesced as it stands. Any n_pad works
-//     (the last block masks its ragged edge).
+//   * K9 (ell_flat_kernel) is K1's tier tile on the flat layout: the
+//     tall layout with one group, sub = 1 and a row width and slot
+//     stride of N_pad (split_tiles' FLAT), so K1 and K3 compile as they
+//     were. A thread owns 4 adjacent columns, each slot word
+//     ell[kk * N_pad + c .. c + 3] is one 16-byte load, 1-8 words in
+//     flight, and the outputs leave as 16-byte stores; a slot or output
+//     base off a 16-byte boundary takes the 4-byte-load instance of the
+//     same kernel. The grid is persistent, so a block packs the raw mask
+//     into bit words in shared memory once (one ballot a warp, after
+//     its first slot loads are issued) for all its tiles, and the tiles
+//     of up to three tiers share the one grid: the sharded ELL query
+//     launches it once for all its flat tiers. The last tile of a tier
+//     is ragged when N_pad % 1024 != 0; a thread's 4 columns are all in
+//     or all out (128 % 4 = 0). The TPU gave the flat layout up because
+//     its (1, width) stores pad to 8 sublanes; on the GPU it is
+//     coalesced as it stands, and at k = 1 it holds the tall layout's
+//     bytes in the same order. The TPU kernel's select tournament over
+//     scalar mask words has no place here.
 //   * K2 (cross_kernel, cross.cuh) is its own design, one launch a call:
 //       - Mask: each block reads the raw 0/1 mask itself and compacts the
 //         rows with a selected path into a list in shared memory (row,
@@ -90,12 +95,13 @@
 //     The TPU's joint/sequential grid has no counterpart: tier and heavy
 //     tiles are all in flight together on the 132 SMs.
 //   * K3 (ell_tier_kernel) is K1's tier phase alone: the same routine
-//     (split_tiles with no heavy tiles), in a kernel that holds only the
-//     8 KB of bit words in shared memory (K1's holds ~40 KB for its row
-//     list and group sums), so more blocks fit an SM; no packing launch
-//     and no scratch. Tier outputs need 16-byte-aligned slots and
-//     outputs (the wrapper refuses others). Its tier-only launch of K1's
-//     kernel instead is `kernel_ab`'s k3_splitn build (PERF.md).
+//     (split_tiles with no heavy tiles), in a kernel that holds only
+//     the 8 KB of bit words in shared memory, as K9's does (K1's holds
+//     ~40 KB for its row list and group sums), so more blocks fit an
+//     SM; no packing launch and no scratch. Tier outputs need
+//     16-byte-aligned slots and outputs (the wrapper refuses others).
+//     Its tier-only launch of K1's kernel instead is `kernel_ab`'s
+//     k3_splitn build (PERF.md).
 
 #include "cross.cuh"
 
@@ -114,27 +120,6 @@ void launch_cross_u(const CrossArgs& x, bool want_u, bool vec,
   }
 }
 
-// Flat tier: column blockIdx.x * THREADS + threadIdx.x of ell[k, n_pad].
-__global__ void __launch_bounds__(THREADS) ell_flat_kernel(
-    const int* __restrict__ ell, int k, long long n_pad, const int* words,
-    int n_words, int* depth, int* uniq) {
-  __shared__ int s_words[MAX_SMEM_WORDS];
-  const int* w = stage_words(s_words, words, n_words, MAX_SMEM_WORDS);
-  const long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (c >= n_pad) return;  // after every thread has staged the mask
-  int d = 0;
-  int u = 0;
-  for (int kk = 0; kk < k; ++kk) {
-    const unsigned v = (unsigned)__ldg(ell + (long long)kk * n_pad + c);
-    // path<<16|count; unsigned shifts, so paths >= 2^15 stay positive.
-    const int bit = mask_bit(w, n_words, (v >> 16) & 0xFFFFu);
-    d += bit * (int)(v & 0xFFFFu);
-    u += bit & (int)(v != 0u);
-  }
-  depth[c] = d;
-  uniq[c] = u;
-}
-
 // K1 and K3: see the design notes above.
 constexpr int T_COLS = 4;  // tier columns a thread owns
 constexpr int T_BLOCK_COLS = THREADS * T_COLS;
@@ -148,12 +133,42 @@ struct SplitArgs {
   int pack16;
   CrossArgs h;      // the heavy block and the raw mask; h.tiles 0 without one
   long long tiles;  // h.tiles heavy tiles, then the tiers' tiles
+  long long cols[3];  // K9's flat tiers: columns, each tier's slot stride
 };
 
-// A tier tile: 4 columns a thread of tall row `tile_row` (g*sub + r),
-// slot words W at a time (the tier's k, or chunks of 8). `stage()`
-// returns the mask's bit words, packing them on the block's first call:
-// it runs after the first words' loads are issued.
+// Adds W slot words, 4 columns each, into the columns' sums.
+template <int W, bool P16>
+__device__ __forceinline__ void add_slots(const uint4 (&v)[W],
+                                          const int* words, int n_words,
+                                          int (&d)[T_COLS], int (&u)[T_COLS]) {
+#pragma unroll
+  for (int kk = 0; kk < W; ++kk) {
+    const unsigned word[T_COLS] = {v[kk].x, v[kk].y, v[kk].z, v[kk].w};
+#pragma unroll
+    for (int cc = 0; cc < T_COLS; ++cc) {
+      if (P16) {
+        // Two path<<8|count halves; the low half is the even slot.
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const unsigned h = (word[cc] >> (16 * half)) & 0xFFFFu;
+          const int bit = mask_bit(words, n_words, h >> 8);
+          d[cc] += bit * (int)(h & 0xFFu);
+          u[cc] += bit & (int)(h != 0u);
+        }
+      } else {
+        // path<<16|count; unsigned shifts, so paths >= 2^15 stay positive.
+        const int bit = mask_bit(words, n_words, word[cc] >> 16);
+        d[cc] += bit * (int)(word[cc] & 0xFFFFu);
+        u[cc] += bit & (int)(word[cc] != 0u);
+      }
+    }
+  }
+}
+
+// A tall tier tile (K1, K3): 4 columns a thread of tall row `tile_row`
+// (g*sub + r), slot words W at a time (the tier's k, or chunks of 8).
+// `stage()` returns the mask's bit words, packing them on the block's
+// first call: it runs after the first words' loads are issued.
 template <int W, bool P16, class Stage>
 __device__ __forceinline__ void tier_tile(const Tier& t, int sub,
                                           long long tile_row, int c,
@@ -173,28 +188,7 @@ __device__ __forceinline__ void tier_tile(const Tier& t, int sub,
                       : make_uint4(0u, 0u, 0u, 0u);
     }
     if (kb == 0) words = stage();
-#pragma unroll
-    for (int kk = 0; kk < W; ++kk) {
-      const unsigned word[T_COLS] = {v[kk].x, v[kk].y, v[kk].z, v[kk].w};
-#pragma unroll
-      for (int cc = 0; cc < T_COLS; ++cc) {
-        if (P16) {
-          // Two path<<8|count halves; the low half is the even slot.
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const unsigned h = (word[cc] >> (16 * half)) & 0xFFFFu;
-            const int bit = mask_bit(words, n_words, h >> 8);
-            d[cc] += bit * (int)(h & 0xFFu);
-            u[cc] += bit & (int)(h != 0u);
-          }
-        } else {
-          // path<<16|count; unsigned shifts, so paths >= 2^15 stay positive.
-          const int bit = mask_bit(words, n_words, word[cc] >> 16);
-          d[cc] += bit * (int)(word[cc] & 0xFFFFu);
-          u[cc] += bit & (int)(word[cc] != 0u);
-        }
-      }
-    }
+    add_slots<W, P16>(v, words, n_words, d, u);
   }
   const long long n = tile_row * TALL_W + c;
   *reinterpret_cast<int4*>(t.depth + n) = make_int4(d[0], d[1], d[2], d[3]);
@@ -218,13 +212,75 @@ __device__ __forceinline__ void tier_tile_k(const Tier& t, int sub,
   }
 }
 
+// A flat tier tile (K9), tile b of 32-bit slots int32[k, cols]: the tall
+// tile with one group, sub = 1 and a row width and slot stride of
+// `cols`, so columns b * T_BLOCK_COLS on. The last tile is ragged: a
+// thread past it (`in` false; cols is a multiple of 128, so a thread's
+// 4 columns are all in or all out) loads and stores nothing but still
+// takes part in the block's staging. VEC: one 16-byte load a word and
+// 16-byte stores, else four 4-byte ones.
+template <int W, bool VEC, class Stage>
+__device__ __forceinline__ void flat_tile(const Tier& t, long long cols,
+                                          long long b, const Stage& stage,
+                                          int n_words) {
+  const long long c = b * T_BLOCK_COLS + threadIdx.x * T_COLS;
+  const bool in = c < cols;
+  int d[T_COLS] = {}, u[T_COLS] = {};
+  const int* words = nullptr;
+  for (int kb = 0; kb < t.k; kb += W) {  // block-uniform
+    const int kc = min(W, t.k - kb);
+    const int* at = t.slots + kb * cols + c;
+    uint4 v[W];
+#pragma unroll
+    for (int kk = 0; kk < W; ++kk) {
+      const int* p = at + kk * cols;
+      if (!in || kk >= kc) {
+        v[kk] = make_uint4(0u, 0u, 0u, 0u);
+      } else if (VEC) {
+        v[kk] = __ldg(reinterpret_cast<const uint4*>(p));
+      } else {
+        v[kk] = make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+      }
+    }
+    if (kb == 0) words = stage();
+    add_slots<W, false>(v, words, n_words, d, u);
+  }
+  if (!in) return;
+  if (VEC) {
+    *reinterpret_cast<int4*>(t.depth + c) = make_int4(d[0], d[1], d[2], d[3]);
+    *reinterpret_cast<int4*>(t.uniq + c) = make_int4(u[0], u[1], u[2], u[3]);
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < T_COLS; ++cc) {
+      t.depth[c + cc] = d[cc];
+      t.uniq[c + cc] = u[cc];
+    }
+  }
+}
+
+template <bool VEC, class Stage>
+__device__ __forceinline__ void flat_tile_k(const Tier& t, long long cols,
+                                            long long b, const Stage& stage,
+                                            int n_words) {
+  if (t.k <= 1) {
+    flat_tile<1, VEC>(t, cols, b, stage, n_words);
+  } else if (t.k <= 2) {
+    flat_tile<2, VEC>(t, cols, b, stage, n_words);
+  } else if (t.k <= 4) {
+    flat_tile<4, VEC>(t, cols, b, stage, n_words);
+  } else {
+    flat_tile<8, VEC>(t, cols, b, stage, n_words);
+  }
+}
+
 // The tiles of a split launch on a persistent grid: heavy tiles first
-// (HEAVY only), then the tiers'. `s_red` holds the heavy tiles' group
-// sums (2 * X_BLOCK_COLS ints; `s_list` and `s_count` their row list)
-// and, once a block reaches its tier tiles (they come after every heavy
-// tile), the mask's bit words (MAX_SMEM_WORDS ints). Every thread of the
-// block calls it.
-template <bool VEC, bool HEAVY>
+// (HEAVY only), then the tiers' (tall, or FLAT). `s_red` holds the heavy
+// tiles' group sums (2 * X_BLOCK_COLS ints; `s_list` and `s_count` their
+// row list) and, once a block reaches its tier tiles (they come after
+// every heavy tile), the mask's bit words (MAX_SMEM_WORDS ints). VEC:
+// 16-byte loads of the heavy block (K1) or of the flat tiers (K9); tall
+// tiers are always 16-byte aligned. Every thread of the block calls it.
+template <bool VEC, bool HEAVY, bool FLAT>
 __device__ __forceinline__ void split_tiles(const SplitArgs& x, int* s_list,
                                             int* s_count, int* s_red) {
   const CrossArgs& h = x.h;
@@ -273,9 +329,13 @@ __device__ __forceinline__ void split_tiles(const SplitArgs& x, int* s_list,
     }
     long long b = tile - h.tiles;
     for (int i = 0; i < x.nt; ++i) {
-      const long long nb = (long long)x.t[i].g * x.sub * T_ROW_TILES;
+      const long long nb =
+          FLAT ? (x.cols[i] + T_BLOCK_COLS - 1) / T_BLOCK_COLS
+               : (long long)x.t[i].g * x.sub * T_ROW_TILES;
       if (b < nb) {
-        if (x.pack16) {
+        if constexpr (FLAT) {
+          flat_tile_k<VEC>(x.t[i], x.cols[i], b, stage, n_words);
+        } else if (x.pack16) {
           tier_tile_k<true>(x.t[i], x.sub, b, stage, n_words);
         } else {
           tier_tile_k<false>(x.t[i], x.sub, b, stage, n_words);
@@ -294,17 +354,25 @@ __global__ void __launch_bounds__(THREADS, X_MIN_BLOCKS)
   __shared__ int s_count;
   __shared__ __align__(16) int s_red[2][X_BLOCK_COLS];
   static_assert(MAX_SMEM_WORDS <= 2 * X_BLOCK_COLS, "bit words fit s_red");
-  split_tiles<VEC, true>(x, s_list, &s_count, &s_red[0][0]);
+  split_tiles<VEC, true, false>(x, s_list, &s_count, &s_red[0][0]);
 }
 
 __global__ void __launch_bounds__(THREADS, T_MIN_BLOCKS)
     ell_tier_kernel(SplitArgs x) {
   __shared__ int s_words[MAX_SMEM_WORDS];
-  split_tiles<true, false>(x, nullptr, nullptr, s_words);
+  split_tiles<true, false, false>(x, nullptr, nullptr, s_words);
 }
 
-// One launch of K1 (HEAVY) or K3 on a persistent grid, as launch_cross.
-template <bool VEC, bool HEAVY>
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, T_MIN_BLOCKS)
+    ell_flat_kernel(SplitArgs x) {
+  __shared__ int s_words[MAX_SMEM_WORDS];
+  split_tiles<VEC, false, true>(x, nullptr, nullptr, s_words);
+}
+
+// One launch of K1 (HEAVY), K3 or K9 (FLAT) on a persistent grid, as
+// launch_cross.
+template <bool VEC, bool HEAVY, bool FLAT = false>
 void launch_splitn(const SplitArgs& x, cudaStream_t st) {
   static int resident = 0;
   if (resident == 0) {
@@ -312,6 +380,9 @@ void launch_splitn(const SplitArgs& x, cudaStream_t st) {
     if constexpr (HEAVY) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, ell_splitn_kernel<VEC>, THREADS, 0);
+    } else if constexpr (FLAT) {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ell_flat_kernel<VEC>, THREADS, 0);
     } else {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ell_tier_kernel,
                                                     THREADS, 0);
@@ -321,6 +392,8 @@ void launch_splitn(const SplitArgs& x, cudaStream_t st) {
   const unsigned blocks = (unsigned)(x.tiles < resident ? x.tiles : resident);
   if constexpr (HEAVY) {
     ell_splitn_kernel<VEC><<<blocks, THREADS, 0, st>>>(x);
+  } else if constexpr (FLAT) {
+    ell_flat_kernel<VEC><<<blocks, THREADS, 0, st>>>(x);
   } else {
     ell_tier_kernel<<<blocks, THREADS, 0, st>>>(x);
   }
@@ -341,8 +414,8 @@ CrossArgs mask_only(const void* mask, int elem_bytes, int n_paths) {
 
 extern "C" {
 
-// K1, K2 and K3 take the raw mask (`elem_bytes` 1 or 4 per path); K9
-// also a scratch buffer of n_words int32 for its bit words.
+// K1, K2, K3 and K9 take the raw mask (`elem_bytes` 1 or 4 per path)
+// and no scratch: each block packs its own bit words.
 
 // K3: tier slots and outputs 16-byte aligned.
 int pollen_ell_tier(const void* slots, int k, int g, int sub, int pack16,
@@ -430,18 +503,34 @@ int pollen_ell_splitn(int nt,
   return (int)cudaGetLastError();
 }
 
-int pollen_ell_flat(const void* ell, int k, long long n_pad,
+// K9: 1-3 flat tiers, slots int32[k, cols] with cols a multiple of 128,
+// all pointers 4-byte aligned (16-byte ones take 16-byte loads).
+int pollen_ell_flat(int nt,
+                    const void* s0, int k0, long long n0, void* d0, void* u0,
+                    const void* s1, int k1, long long n1, void* d1, void* u1,
+                    const void* s2, int k2, long long n2, void* d2, void* u2,
                     const void* mask, int elem_bytes, int n_paths,
-                    void* words, int n_words, void* depth, void* uniq,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* w = static_cast<int*>(words);
-  pack_mask(mask, elem_bytes, n_paths, 1, w, n_words, st);
-  const long long blocks = (n_pad + THREADS - 1) / THREADS;
-  if (blocks > 0) {
-    ell_flat_kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
-        static_cast<const int*>(ell), k, n_pad, w, n_words,
-        static_cast<int*>(depth), static_cast<int*>(uniq));
+  if (nt < 1 || nt > 3) return (int)cudaErrorInvalidValue;
+  SplitArgs x{{tier_of(s0, k0, 1, d0, u0), tier_of(s1, k1, 1, d1, u1),
+               tier_of(s2, k2, 1, d2, u2)},
+              nt, 1, 0, mask_only(mask, elem_bytes, n_paths), 0,
+              {n0, n1, n2}};
+  uintptr_t align = 0;
+  for (int i = 0; i < nt; ++i) {
+    if (x.cols[i] % H_COLS) return (int)cudaErrorInvalidValue;
+    align |= reinterpret_cast<uintptr_t>(x.t[i].slots) |
+             reinterpret_cast<uintptr_t>(x.t[i].depth) |
+             reinterpret_cast<uintptr_t>(x.t[i].uniq);
+    x.tiles += (x.cols[i] + T_BLOCK_COLS - 1) / T_BLOCK_COLS;
+  }
+  if (align % 4) return (int)cudaErrorInvalidValue;
+  if (x.tiles == 0) return (int)cudaGetLastError();
+  if (align % 16 == 0) {
+    launch_splitn<true, false, true>(x, st);
+  } else {
+    launch_splitn<false, false, true>(x, st);
   }
   return (int)cudaGetLastError();
 }

@@ -59,7 +59,14 @@ SIGNATURES = {
     "pollen_ell_tier": (_P, _I, _I, _I, _I, *_RAW, _P, _P, _P),
     # matrix, rows, n_pad, nibble, raw mask, depth, uniq, stream
     "pollen_cross_depth": (_P, _I, _L, _I, *_RAW, _P, _P, _P),
-    "pollen_ell_flat": (_P, _I, _L, *_MASK, _P, _P, _P),  # slots, k, n_pad
+    "pollen_ell_flat": (
+        _I,  # number of tiers
+        _P, _I, _L, _P, _P,  # tier 0: slots, k, n_pad, depth, uniq
+        _P, _I, _L, _P, _P,  # tier 1
+        _P, _I, _L, _P, _P,  # tier 2
+        *_RAW,
+        _P,  # stream
+    ),
     # probes.cu: mode, matrix, rows, n_pad, raw mask, flags, depth, uniq,
     # stream
     "pollen_cross_probe": (_I, _P, _I, _L, *_RAW, _P, _P, _P, _P),

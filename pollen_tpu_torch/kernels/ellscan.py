@@ -11,8 +11,8 @@ the tall layout ``tall[(g*K + k)*SUB + r, c]``. The masked query is
 Host half: a jax-free port of pollen_tpu/kernels/ellscan.py's planner
 and packers (same constants, same layouts), so the port builds the
 resident index the reference builds; also the flat ``(K, N_pad)``
-single-tier layout (:func:`build_ell`), which only direct kernel
-callers use. Device half: the wrappers of the CUDA kernels in
+layout (:func:`build_ell`'s single tier, and the sharded query's tiers
+unfolded). Device half: the wrappers of the CUDA kernels in
 ``csrc/depth.cu`` (one mask) and ``csrc/depth_batch.cu`` (Q masks in
 one launch) beside their plain PyTorch versions.
 A wrapper runs the plain version only for tensors on the CPU; on a CUDA
@@ -294,11 +294,13 @@ def masked_ell_depth_plain(
     flat: torch.Tensor, mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(depth, uniq) int32[N] over flat int32[K, N] 32-bit slots, with a
-    plain mask gather (twin of the reference's masked_ell_depth_xla)."""
+    plain mask gather (twin of the reference's masked_ell_depth_xla; a
+    mask past 2^16 paths is cut there: slots hold 16-bit path ids)."""
     pid = ((flat >> COUNT_BITS) & 0xFFFF).long()
     cnt = flat & COUNT_MAX
     m = torch.zeros(1 << 16, dtype=torch.int32, device=flat.device)
-    m[: mask.shape[0]] = mask.to(torch.int32)
+    n = min(mask.shape[0], 1 << 16)
+    m[:n] = mask[:n].to(torch.int32)
     bit = m[pid]
     depth = (bit * cnt).sum(dim=0, dtype=torch.int32)
     uniq = (bit * (flat != 0).to(torch.int32)).sum(dim=0, dtype=torch.int32)
@@ -451,37 +453,64 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_flat(ell: torch.Tensor) -> None:
+    if ell.dtype != torch.int32 or ell.dim() != 2:
+        raise TypeError(f"flat slots must be 2-D int32, got {ell.dtype}")
+    if ell.shape[1] % LANES or not ell.is_contiguous():
+        raise ValueError(
+            f"flat slots {tuple(ell.shape)} must be contiguous with a "
+            f"multiple of {LANES} columns"
+        )
+
+
+def masked_ell_depth_tiers(
+    tiers: Sequence[torch.Tensor], mask: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """``(d_i, u_i)`` int32[N_pad_i] for each of 1-3 flat tiers, each
+    int32[K_i, N_pad_i] 32-bit slots as :func:`masked_ell_depth` takes
+    them, under one mask, in one launch that reads the raw mask itself.
+    CUDA: csrc/depth.cu pollen_ell_flat."""
+    if not 1 <= len(tiers) <= 3:
+        raise ValueError(f"need 1-3 flat tiers, got {len(tiers)}")
+    for e in tiers:
+        _check_flat(e)
+    device = tiers[0].device
+    if any(e.device != device for e in tiers):
+        raise ValueError("flat tiers must share one device")
+    if device.type == "cpu":
+        return tuple(x for e in tiers for x in masked_ell_depth_plain(e, mask))
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    mask, elem, n_paths, _ = kernel_mask(mask, device)
+    outs = alloc_outputs([n for e in tiers for n in (e.shape[1],) * 2], 0,
+                         device)[:-1]
+    args = []
+    for i, e in enumerate(tiers):
+        k, n_pad = e.shape
+        args += [e.data_ptr(), k, n_pad, outs[2 * i].data_ptr(),
+                 outs[2 * i + 1].data_ptr()]
+    args += [None, 0, 0, None, None] * (3 - len(tiers))
+    if any(e.shape[1] for e in tiers):
+        _build.check(
+            "pollen_ell_flat",
+            _build.load().pollen_ell_flat(
+                len(tiers), *args, mask.data_ptr(), elem, n_paths,
+                _stream(device),
+            ),
+        )
+        launches["ell_flat"] += 1
+    return tuple(outs)
+
+
 def masked_ell_depth(
     ell: torch.Tensor, mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(depth, uniq) int32[N_pad] over the flat int32[K, N_pad] 32-bit
     slots of :func:`build_ell` (N_pad a multiple of 128); ``mask`` is
-    0/1 per path, paths past its end read 0.
+    0/1 per path, paths past its end read 0. The one-tier form of
+    :func:`masked_ell_depth_tiers`.
     CUDA: csrc/depth.cu pollen_ell_flat."""
-    if ell.dtype != torch.int32 or ell.dim() != 2:
-        raise TypeError(f"flat slots must be 2-D int32, got {ell.dtype}")
-    k, n_pad = ell.shape
-    if n_pad % LANES or not ell.is_contiguous():
-        raise ValueError(
-            f"flat slots {tuple(ell.shape)} must be contiguous with a "
-            f"multiple of {LANES} columns"
-        )
-    if ell.device.type == "cpu":
-        return masked_ell_depth_plain(ell, mask)
-    if ell.device.type != "cuda":
-        raise ValueError(f"no kernel for device {ell.device}")
-    mask, elem, n_paths, n_words = kernel_mask(mask, ell.device)
-    depth, uniq, words = alloc_outputs([n_pad, n_pad], n_words, ell.device)
-    _build.check(
-        "pollen_ell_flat",
-        _build.load().pollen_ell_flat(
-            ell.data_ptr(), k, n_pad, mask.data_ptr(), elem, n_paths,
-            words.data_ptr(), n_words, depth.data_ptr(), uniq.data_ptr(),
-            _stream(ell.device),
-        ),
-    )
-    launches["ell_flat"] += 1
-    return depth, uniq
+    return masked_ell_depth_tiers([ell], mask)
 
 
 def masked_ell_depth_tall(

@@ -480,16 +480,14 @@ def ell_args(se: ShardedEll, mask: torch.Tensor) -> list:
     return args + [mask]
 
 
-def _ell_query(has_heavy, has_mid, has_mid2, tier, heavy_part):
-    """The zero-collective ELL query: ``tier(slots, mask)`` on each tier
-    present, then ``heavy_part(h, res, res_col, mask)``."""
+def _ell_query(has_heavy, has_mid, has_mid2, tiers, heavy_part):
+    """The zero-collective ELL query: ``tiers(slots, mask)`` on the list
+    of tiers present, then ``heavy_part(h, res, res_col, mask)``."""
 
     def query(*args):
         mask = args[-1]
         n_tiers = 1 + has_mid + has_mid2
-        outs = []
-        for e in args[:n_tiers]:
-            outs += list(tier(e, mask))
+        outs = list(tiers(args[:n_tiers], mask))
         if has_heavy:
             outs += list(heavy_part(*args[n_tiers : n_tiers + 3], mask))
         return tuple(outs)
@@ -506,8 +504,9 @@ def sharded_ell_depth_fn(
     """Job-wide masked (depth, uniq) over the tiered split ELL run index,
     with the same zero-collective tensor parallelism as the sharded
     crossing matrix: every rank reduces its own tier slot columns on
-    the flat ELL kernel (K9, the reference's ``_tier``) and its own
-    heavy nibble columns on the crossing-matrix kernel (K2); the
+    the flat ELL kernel (K9, the reference's ``_tier``; all its tiers
+    in one launch) and its own heavy nibble columns on the
+    crossing-matrix kernel (K2); the
     replicated clip residual is range-filtered locally. Outputs stay
     segment-sharded, one (depth, uniq) pair per present class in
     ``ell_order`` order: (d1, u1[, d2, u2][, d3, u3][, dh, uh])."""
@@ -521,7 +520,8 @@ def sharded_ell_depth_fn(
             depth_h = _add_own_residual(depth_h, fix, res_col, index * h.shape[1])
         return depth_h, uniq_h
 
-    return _ell_query(has_heavy, has_mid, has_mid2, _ell.masked_ell_depth, heavy_part)
+    return _ell_query(has_heavy, has_mid, has_mid2, _ell.masked_ell_depth_tiers,
+                      heavy_part)
 
 
 def ell_tiers_batch(e: torch.Tensor, masks: torch.Tensor):
@@ -561,7 +561,10 @@ def sharded_ell_depth_batch_fn(
             depth_h = _add_own_residual(depth_h, fix, res_col, index * h.shape[1])
         return depth_h, uniq_h
 
-    return _ell_query(has_heavy, has_mid, has_mid2, ell_tiers_batch, heavy_part)
+    def tiers(slots, masks):
+        return [x for e in slots for x in ell_tiers_batch(e, masks)]
+
+    return _ell_query(has_heavy, has_mid, has_mid2, tiers, heavy_part)
 
 
 def _host(x) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""K1-K5, K8 and the probe ladder K10-K12 side by side across builds, on
-the card, at the shapes of ``chip_smoke.py``'s rows:
+"""K1-K5, K8, K9 and the probe ladder K10-K12 side by side across builds,
+on the card, at the shapes of ``chip_smoke.py``'s rows:
 
     K1  the fused split ELL query (tiers and heavy block in one call) at
         bench (one pack16 tier of k = 2, a 64 x 16,384 heavy block) and
@@ -16,6 +16,11 @@ the card, at the shapes of ``chip_smoke.py``'s rows:
         262,144), the same Q = 32 masks;
     K8  bench_runs' run index (524,288 runs) and wide_p2e17's
         (12,795,904), under seeded masks;
+    K9  chr8_third's flat slots from ``build_ell`` (k = 1, 4,194,304
+        columns), and its three tiers unfolded to flat 32-bit slots and
+        cut to rank 1 of 2's columns, as the sharded ELL query holds
+        them: each tier alone, the three a call each, and (where the
+        build has ``masked_ell_depth_tiers``) the three in one call;
     K10-K12  the ladder's four rungs (raw, vd, v1, v2 with tile_flags) on
         K2's two matrices under K2's masks, beside K2's row, and v1 under
         a mask that selects no row (what a call costs with no row read).
@@ -137,9 +142,11 @@ def _ell_index(dg) -> dict:
 def make_shapes(path: pathlib.Path) -> None:
     """The inputs, from seeded synthetic graphs ingested on the host,
     saved to ``path``."""
+    import numpy as np
     import torch
 
     from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.kernels.ellscan import build_ell
     from pollen_tpu_torch.synth import synth_graph
 
     unfused = build_graph(synth_graph(2**20, 2**17, 128), "cpu")
@@ -162,6 +169,12 @@ def make_shapes(path: pathlib.Path) -> None:
         "ell bench": _ell_index(bench),
         "ell chr8_third": _ell_index(chr8),
     }
+    rsb = chr8.run_seg_bounds.numpy()
+    r = int(rsb[-1])
+    run_seg = np.repeat(np.arange(chr8.num_segments), np.diff(rsb))
+    flat, _ = build_ell(chr8.run_path[:r].numpy(), chr8.run_count[:r].numpy(),
+                        run_seg.astype(np.int32), chr8.num_segments)
+    data["flat chr8_third"] = (torch.from_numpy(flat), chr8.num_paths)
     for name, shape, kw in (
         ("bench_runs", (2**22, 2**18, 128), {"cross_matrix": "never"}),
         ("wide_p2e17", (2**25, 2**22, 2**17), {}),
@@ -253,6 +266,36 @@ def measure(label: str, path: pathlib.Path) -> None:
               f"K3 chr8_third k={k}")
         out.append(f"K3 chr8_third tier {tuple(tall.shape)} k={k} "
                    f"{med(fn):.2f}")
+    flat, n_paths = data["flat chr8_third"]
+    flat = flat.cuda()
+    m = (torch.rand(n_paths, generator=gen) < 0.5).cuda()
+    fn = functools.partial(ell.masked_ell_depth, flat, m)
+    exact(fn(), ell.masked_ell_depth_plain(flat, m), "K9 chr8_third flat")
+    out.append(f"K9 chr8_third flat {tuple(flat.shape)} {med(fn):.2f}")
+    del flat
+    slices = []
+    for tall, k in zip(e["tiers"], e["ks"]):
+        f = ell.unfold_ell_tall(tall.cuda(), k)
+        f = ell.unpair_ell16(f) if e["pack16"] else f
+        width = -(-f.shape[1] // (2 * 128)) * 128  # sharded._pad_cols, rank 1
+        piece = torch.zeros((f.shape[0], width), dtype=f.dtype, device="cuda")
+        piece[:, : f.shape[1] - width] = f[:, width:]
+        slices.append(piece)
+        fn = functools.partial(ell.masked_ell_depth, piece, m)
+        exact(fn(), ell.masked_ell_depth_plain(piece, m), "K9 tier slice")
+        out.append(f"K9 chr8_third tier slice {tuple(piece.shape)} {med(fn):.2f}")
+
+    def each():
+        return tuple(x for f in slices for x in ell.masked_ell_depth(f, m))
+
+    want = tuple(x for f in slices for x in ell.masked_ell_depth_plain(f, m))
+    exact(each(), want, "K9 tier slices, a call each")
+    out.append(f"K9 chr8_third 3 tier slices, a call each {med(each):.2f}")
+    if hasattr(ell, "masked_ell_depth_tiers"):
+        fn = functools.partial(ell.masked_ell_depth_tiers, slices, m)
+        exact(fn(), want, "K9 tier slices, one call")
+        out.append(f"K9 chr8_third 3 tier slices, one call {med(fn):.2f}")
+    del slices
     for name in ("unfused", "chr8_third"):
         a, n_paths = data[name]
         a = a.cuda()
