@@ -185,16 +185,34 @@ times K6 (device carry), K9 (its tier-1 slice, and its three tier slices
 in one launch), K2 and K5 on its own piece, their rows of the kernels'
 line. Its numbers are the ``{"sharded": ...}`` line.
 
+Phase 7 runs the port's examples (``examples/torch/``), the
+counterparts of ``examples/``. Each of the seven runs as a subprocess
+on its fixtures (all started at once) with ``--device cuda`` and with
+``--device cpu``: the two stdouts must be the same bytes and carry the
+lines tests/test_examples.py expects (spec_depth.py has no device and
+runs once). Then ``batch_depth.py``'s ``main`` runs in this process on
+bench (with its paths' links, as GFA text) on the card, stdout to a
+file, with the launch counts set to 0 before it and every plain
+version made to raise: its three subset tables must equal
+``NumpyReference`` under the numpy masks it built, K4 must have run,
+and its seconds end to end (parse, ingest, first query, text) and its
+query's CUDA-event wall per call are printed. Last, ``depth.py``'s
+``main`` walks unfused (2^20 steps, as GFA text) through the object
+API, checks the walk against ``seg_depth_with_uniq`` on the card, and
+its table is held against ``NumpyReference``; the walk's seconds are
+printed. Its numbers are the ``{"examples": ...}`` line.
+
 Launch counts are set to 0 right before each main path (the single
 query: phase 2's single-query requests and phase 3's queries; the
 batch: phase 2's ``-S`` requests and phase 3's batches; the scan
 family: its phase 2 requests and phase 3 queries and batches; the flat
 ELL path; the probe path; phase 4's API queries, K1, and its entry,
 K2; phase 5's permuted query on each graph, and its probes; phase 6's
-sharded queries, on each rank) and read right after it: every kernel
+sharded queries, on each rank; phase 7's batch example) and read right after it: every kernel
 must have been launched by its path (phase 6: K6 by the fused query,
 K9 and K2 by the ELL query, K9 exactly once a query on every rank and
-in the one-rank run, K5 by its batch, K2 by the crossing matrix's). Each kernel's time is its CUDA-event
+in the one-rank run, K5 by its batch, K2 by the crossing matrix's; phase
+7's batch example, K4). Each kernel's time is its CUDA-event
 wall per call and its device time per call from a replayed CUDA graph
 (``pollen_tpu_torch/probes/timing.py``), beside its plain version's
 wall, its bound and its library call (wall and replay): one PyTorch
@@ -3483,7 +3501,7 @@ def phase_api_shell(graphs: dict, gaf: bytes, card: str) -> dict:
     numpy's bincount and phase 3's index, timed by ``profiling.time_best``
     and ``cuda_ms`` (within 2x of each other) and traced once under
     ``profiling.device_trace`` in a process of its own (its Chrome trace
-    must hold a K1 kernel event); ``g.all_reads`` over the 2^20-read GAF (``chunk_reads`` on
+    must hold an event for each kernel launch, K1 among them); ``g.all_reads`` over the 2^20-read GAF (``chunk_reads`` on
     the card), the first 10,000 ``GAFLine``s against ``numpy_chunker``;
     a three-command ``flash-torch -O`` script (``depth -d``; p0's length
     into 100 kb windows redirected to ``win.bed``; interval depth over
@@ -3506,6 +3524,7 @@ def phase_api_shell(graphs: dict, gaf: bytes, card: str) -> dict:
     from pollen_tpu_torch.ops.depth import (
         _best_masked_impl, masked_seg_depth,
     )
+    from pollen_tpu_torch.probes import trace_skew
     from pollen_tpu_torch.scripts import script_env
     from pollen_tpu_torch.shell import optimize, shell_to_ir
 
@@ -3622,14 +3641,19 @@ def phase_api_shell(graphs: dict, gaf: bytes, card: str) -> dict:
         cats = {}
         for e in events:
             cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
-        need(len(k1) == 1, f"device_trace: {len(k1)} ell_splitn kernel "
-             f"events in {trace.name} ({len(events)} events by category "
-             f"{cats})")
+        skew = trace_skew.offsets(events)
+        need(len(k1) == 1 and skew["kernels"] == skew["launches"],
+             f"device_trace: {len(k1)} ell_splitn kernel events in "
+             f"{trace.name} ({len(events)} events by category {cats}; "
+             f"launches and events on the card: {skew})")
         out["trace_events"] = len(events)
+        out["trace_offset_us"] = [skew["min_us"], skew["max_us"]]
         print(f"device_trace (its own process, API load, g.device(), one "
               f"warm query, then one traced): {trace.name}, {len(events)} "
-              f"events, K1 as {k1[0]['name']!r} ({k1[0].get('dur')} us)",
-              flush=True)
+              f"events, all {skew['launches']} kernel launches kept, K1 as "
+              f"{k1[0]['name']!r} ({k1[0].get('dur')} us); events on the "
+              f"card {skew['min_us']:.1f} to {skew['max_us']:.1f} us after "
+              "their runtime calls", flush=True)
 
         # 4. The shell: one script, -O maps chr8_third.flatgfa (the .gfa
         # text is never written: a failed substitution fails to open it).
@@ -4772,16 +4796,13 @@ def phase_sharded(graphs: dict, card: str) -> dict:
     sharded path; its ``{"sharded": ...}`` line's record."""
     import torch
 
-    from pollen_tpu_torch import native
     from pollen_tpu_torch.parallel import launch
 
     out = {"torch": torch.__version__, "label": f"{SHARDED_LABEL} [{card}]"}
     out["one_rank"] = phase_sharded_one_rank()
     with tempfile.TemporaryDirectory() as tmp:
         gfa = pathlib.Path(tmp) / "bench.gfa"
-        g, _, _ = add_path_links(graphs["bench"][0])
-        need(native.emit_gfa_file_native(text_arena(g), str(gfa)),
-             "bench: the native file emit fell back")
+        gfa_text_file(graphs["bench"][0], gfa)
         t0 = time.perf_counter()
         ranks = launch.run(sharded_rank, SHARDED_RANKS, str(gfa), device="cuda",
                            deadline=SHARDED_DEADLINE)
@@ -4813,6 +4834,360 @@ def phase_sharded(graphs: dict, card: str) -> dict:
                 f"{k} wall {v['wall_us']:.2f} us, busy "
                 + (f"{v['busy_us']:.2f} us" if v.get("busy_us") else "not measured")
                 for k, v in row.items()), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the port's examples (examples/torch/) on the card: each on its
+# fixtures with --device cuda, byte for byte as its --device cpu run; the
+# batch example in process at bench (K4); the object-API walk at unfused.
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = REPO / "examples" / "torch"
+EXAMPLE_GFA = REPO / "examples" / "example.gfa"
+EXAMPLE_DEPTH = ["1\t2", "2\t2", "3\t1", "4\t2"]
+EXAMPLE_SUBSETS = 3  # batch_depth.py's subsets: the first path, all, every other
+
+
+def _example_batch_depth_ok(out):
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.flatgfa import parse_gfa_file
+    from pollen_tpu_torch.ops.depth import run_seg_depth
+
+    if out.count("# subset") != EXAMPLE_SUBSETS:
+        return False
+    # Subset 1 is all paths: its block is the plain depth -d table.
+    g = parse_gfa_file(str(EXAMPLE_GFA))
+    block = out.split("# subset ")[2].splitlines()[1:]
+    return "\n".join(block) + "\n" == run_seg_depth(g, build_graph(g, "cuda"))
+
+
+# What tests/test_examples.py asks of each example's counterpart.
+EXAMPLE_CHECKS = {
+    "depth": lambda out: out.splitlines() == ["#node.id\tdepth"] + EXAMPLE_DEPTH,
+    "batch_depth": _example_batch_depth_ok,
+    "gaf": lambda out: (out.splitlines()[:2] == ["foo", "AAGAAATTTTCT"]
+                        and "(5, 8)" in out and "bar" in out),
+    "matrix": lambda out: out.startswith("example.gaf 1 1 1 1"),
+    "spec_depth": lambda out: out.splitlines()[1:] == EXAMPLE_DEPTH,
+    "flash_example": lambda out: (
+        "#path\tstart\tend\tmean.depth" in out
+        and 0 <= out.find("#node.id\tdepth\tdepth.uniq") < out.index("#path")),
+    "windows": lambda out: out.splitlines()[0].startswith("alpha\t0\t4\t"),
+}
+
+
+def example_command(name: str, device: str) -> list:
+    """The command that runs one example on ``device`` from the repo root
+    (spec_depth has no device: it reads GFA from stdin)."""
+    if name == "flash_example":
+        return ["flash-torch", "--device", device,
+                str(EXAMPLES_DIR / "flash_example.sh")]
+    if name == "windows":
+        return ["sh", str(EXAMPLES_DIR / "windows.sh"), device]
+    argv = [sys.executable, str(EXAMPLES_DIR / f"{name}.py")]
+    return argv if name == "spec_depth" else argv + ["--device", device]
+
+
+def phase_examples_fixtures(card: str) -> dict:
+    """Every example as a subprocess on its fixtures, all started at once:
+    its --device cuda stdout equal to its --device cpu stdout, byte for
+    byte, and passing tests/test_examples.py's assertions. Returns each
+    run's seconds from its start until it was collected."""
+    from pollen_tpu_torch.scripts import script_env
+
+    env = script_env()
+    procs = {}
+    try:
+        for name in EXAMPLE_CHECKS:
+            devices = ("cpu",) if name == "spec_depth" else ("cuda", "cpu")
+            for device in devices:
+                with open(EXAMPLE_GFA if name == "spec_depth" else os.devnull,
+                          "rb") as stdin:
+                    procs[name, device] = (time.perf_counter(), subprocess.Popen(
+                        example_command(name, device), stdin=stdin,
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True, cwd=REPO, env=env))
+        outs, secs = {}, {}
+        for key, (t0, proc) in procs.items():
+            out, err = proc.communicate(timeout=300)
+            secs[f"{key[0]} {key[1]}"] = time.perf_counter() - t0
+            need(proc.returncode == 0,
+                 f"example {key[0]} --device {key[1]} failed: {err[-2000:]}")
+            outs[key] = out
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, check in EXAMPLE_CHECKS.items():
+        out = outs[name, "cpu"]
+        if name != "spec_depth":
+            need(outs[name, "cuda"] == out,
+                 f"example {name}: --device cuda prints other bytes than "
+                 "--device cpu")
+        need(check(out), f"example {name}: not the lines tests/test_examples"
+             f".py expects: {out[:300]!r}")
+    print(f"phase 7 (a): the 7 examples on their fixtures, --device cuda "
+          f"equal to --device cpu byte for byte (spec_depth has no device) "
+          f"and to tests/test_examples.py's lines; seconds from each run's "
+          f"start until it was collected (all started at once) " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                         secs.items()) + f" [{card}]",
+          flush=True)
+    return secs
+
+
+def load_example(name: str):
+    """examples/torch/<name>.py as a module (its __main__ block unrun)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class Clock:
+    """Wraps functions (``mock.patch.object``) to log each call's seconds,
+    and its arguments, under a label."""
+
+    def __init__(self):
+        self.calls = []
+
+    def wrap(self, label, fn, sync=False):
+        import torch
+
+        def timed(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            self.calls.append((label, time.perf_counter() - t0, args))
+            return out
+
+        return timed
+
+    def seconds(self, label) -> float:
+        return sum(s for name, s, _ in self.calls if name == label)
+
+    def args(self, label) -> list:
+        return [a for name, _, a in self.calls if name == label]
+
+
+def no_plain_versions(ran: list):
+    """A context in which every kernel wrapper module's plain version
+    (``*_plain``) records its name in ``ran`` and raises."""
+    import contextlib
+
+    from pollen_tpu_torch.kernels import (
+        crossmat, crossprobe, ellscan, gatherb, runscan, segscan,
+    )
+
+    def refuse(name):
+        def plain(*args, **kwargs):
+            ran.append(name)
+            raise SmokeError(f"the plain version {name} ran")
+        return plain
+
+    stack = contextlib.ExitStack()
+    for mod in (crossmat, crossprobe, ellscan, gatherb, runscan, segscan):
+        for attr in dir(mod):
+            if attr.endswith("_plain") and callable(getattr(mod, attr)):
+                stack.enter_context(mock.patch.object(
+                    mod, attr, refuse(f"{mod.__name__}.{attr}")))
+    return stack
+
+
+def gfa_text_file(g, path: pathlib.Path):
+    """``g`` with its paths' links as GFA text at ``path``, as phase 5
+    prints it (``add_path_links``, ``text_arena``, the native emit)."""
+    from pollen_tpu_torch import native
+
+    linked, _, _ = add_path_links(g)
+    need(native.emit_gfa_file_native(text_arena(linked), str(path)),
+         f"{path.name}: the native file emit fell back")
+
+
+def table_rows(text: str, cols: int):
+    """The int rows of a TSV table's body (no header lines)."""
+    import numpy as np
+
+    return np.array(text.split(), np.int64).reshape(-1, cols)
+
+
+def phase_example_batch(g, reference, gfa: pathlib.Path, tmp: pathlib.Path,
+                        card: str) -> dict:
+    """batch_depth.py's main in process on bench's GFA on the card, stdout
+    to a file, under a launch count and with every plain version refused:
+    its three tables equal ``reference`` on the masks it built, K4 ran,
+    its masks were numpy; then the CUDA-event wall per call of its query
+    and of the query's device part, at its Q and at Q = 32."""
+    import numpy as np
+    import torch
+
+    from pollen_tpu_torch import device as device_mod
+    from pollen_tpu_torch import flatgfa
+    from pollen_tpu_torch.ops import depth as depth_op
+
+    example = load_example("batch_depth")
+    clock, ran = Clock(), []
+    out_path = tmp / "batch_depth.out"
+    real_batch = depth_op.seg_depth_with_uniq_batch
+    with no_plain_versions(ran), \
+            mock.patch.object(flatgfa, "parse_gfa_file", clock.wrap(
+                "parse", flatgfa.parse_gfa_file)), \
+            mock.patch.object(device_mod, "build_graph", clock.wrap(
+                "ingest", device_mod.build_graph, sync=True)), \
+            mock.patch.object(depth_op, "seg_depth_with_uniq_batch",
+                              clock.wrap("query", real_batch, sync=True)), \
+            open(out_path, "w") as f:
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(sys, "stdout", f):
+            example.main(str(gfa), "cuda")
+        f.flush()
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+    need(not ran, f"plain versions ran in the batch example: {ran}")
+    need(counts["ell_splitn_batch"] > 0,
+         f"the batch example at bench never launched K4: {counts}")
+    (dg, masks), = clock.args("query")
+    need(dg.device.type == "cuda", f"the example's graph is on {dg.device}")
+    need(depth_op.batch_route(dg) == "ell",
+         f"bench's batch plan routes {depth_op.batch_route(dg)!r}, not ell")
+    need(isinstance(masks, np.ndarray) and masks.dtype == bool,
+         f"the example passed {type(masks).__name__} masks, not numpy bool")
+    names = [b.decode() for b in g.path_names()]
+    subsets = [names[:1], names, names[::2]]
+    want_masks = np.stack([depth_op.path_mask_for(g, s) for s in subsets])
+    need(np.array_equal(masks, want_masks), "the example's masks differ")
+    text = out_path.read_text()
+    blocks = text.split("# subset ")[1:]
+    need(len(blocks) == EXAMPLE_SUBSETS, f"{len(blocks)} subset tables")
+    n = g.num_segments
+    for q, block in enumerate(blocks):
+        head, header, body = block.split("\n", 2)
+        need(head == f"{q}: {','.join(subsets[q])}"
+             and header == "#node.id\tdepth\tdepth.uniq",
+             f"subset {q}: headers {head[:60]!r}, {header!r}")
+        rows = table_rows(body, 3)
+        d_ref, u_ref = reference(masks[q])
+        need(rows.shape[0] == n and np.array_equal(rows[:, 0], g.seg_name)
+             and np.array_equal(rows[:, 1], d_ref)
+             and np.array_equal(rows[:, 2], u_ref),
+             f"subset {q}: the example's table differs from NumpyReference")
+    # The example's call, then its device part alone (the per-class parts
+    # on the card, no host compose), each also at phase 3's Q = 32 batch.
+    masks32 = batch_masks(g.num_paths, np.random.default_rng(8))
+    walls = {}
+    with no_plain_versions(ran):
+        for q, m in ((masks.shape[0], masks), (32, masks32)):
+            mt = torch.from_numpy(m).cuda()
+            walls[q] = (
+                cuda_ms(lambda: real_batch(dg, m)) * 1e3,
+                cuda_ms(lambda: depth_op.seg_depth_with_uniq_ell_batch_parts(
+                    dg, mt)) * 1e3,
+            )
+    need(not ran, f"plain versions ran in the timed query: {ran}")
+    q3 = masks.shape[0]
+    row = dict(text_bytes=gfa.stat().st_size, out_bytes=len(text),
+               end_to_end_s=total, parse_s=clock.seconds("parse"),
+               ingest_s=clock.seconds("ingest"),
+               query_first_s=clock.seconds("query"),
+               query_wall_us=walls[q3][0], per_query_us=walls[q3][0] / q3,
+               parts_wall_us=walls[q3][1], q32_wall_us=walls[32][0],
+               q32_per_query_us=walls[32][0] / 32, q32_parts_wall_us=walls[32][1],
+               launches={k: v for k, v in counts.items() if v})
+    row["text_s"] = total - row["parse_s"] - row["ingest_s"] - row[
+        "query_first_s"]
+    print(f"phase 7 (b): batch_depth.py at bench ({row['text_bytes']} bytes "
+          f"of GFA, {n} segments, Q = {masks.shape[0]} numpy masks): "
+          f"{total:.3f} s end to end (parse {row['parse_s']:.3f}, ingest "
+          f"{row['ingest_s']:.3f}, first query {row['query_first_s']:.3f}, "
+          f"text {row['text_s']:.3f}); the query {row['query_wall_us']:.2f} "
+          f"us wall a call, {row['per_query_us']:.2f} a query, its device "
+          f"part (the ELL parts, no host compose) {row['parts_wall_us']:.2f}; "
+          f"at Q = 32 {row['q32_wall_us']:.2f} a call, "
+          f"{row['q32_per_query_us']:.2f} a query, device part "
+          f"{row['q32_parts_wall_us']:.2f}; three tables "
+          f"equal NumpyReference; launches {row['launches']}; no plain "
+          f"version [{card}]", flush=True)
+    return row
+
+
+def phase_example_walk(g, reference, gfa: pathlib.Path, tmp: pathlib.Path,
+                       card: str) -> dict:
+    """depth.py's main in process on unfused's GFA on the card: its walk
+    over every step (checked inside main against seg_depth_with_uniq on
+    the card) and its printed table against ``reference`` (all paths)."""
+    import numpy as np
+
+    import pollen_tpu_torch
+    from pollen_tpu_torch import device as device_mod
+
+    example = load_example("depth")
+    clock = Clock()
+    out_path = tmp / "depth.out"
+    with mock.patch.object(pollen_tpu_torch, "parse", clock.wrap(
+                "parse", pollen_tpu_torch.parse)), \
+            mock.patch.object(example, "depth_by_walking", clock.wrap(
+                "walk", example.depth_by_walking)), \
+            mock.patch.object(device_mod, "build_graph", clock.wrap(
+                "ingest", device_mod.build_graph, sync=True)), \
+            open(out_path, "w") as f:
+        t0 = time.perf_counter()
+        with mock.patch.object(sys, "stdout", f):
+            example.main(str(gfa), "cuda")
+        f.flush()
+        total = time.perf_counter() - t0
+    (arrays, dev), = [a for a in clock.args("ingest")]
+    need(str(dev) == "cuda", f"the walk example's query ran on {dev}")
+    header, body = out_path.read_text().split("\n", 1)
+    rows = table_rows(body, 2)
+    d_ref, _ = reference(np.ones(g.num_paths, bool))
+    need(header == "#node.id\tdepth" and rows.shape[0] == g.num_segments
+         and np.array_equal(rows[:, 0], g.seg_name)
+         and np.array_equal(rows[:, 1], d_ref),
+         "the walk example's table differs from NumpyReference")
+    row = dict(steps=g.num_steps, end_to_end_s=total,
+               parse_s=clock.seconds("parse"), walk_s=clock.seconds("walk"),
+               ingest_and_query_s=total - clock.seconds("parse")
+               - clock.seconds("walk"))
+    print(f"phase 7 (c): depth.py at unfused ({gfa.stat().st_size} bytes of "
+          f"GFA, {g.num_steps} steps): {total:.3f} s end to end; the object-"
+          f"API walk {row['walk_s']:.3f} s ({row['walk_s'] / g.num_steps * 1e9:.1f} "
+          f"ns a step), parse {row['parse_s']:.3f}, ingest, the device query "
+          f"and the table {row['ingest_and_query_s']:.3f}; the walk equals "
+          f"seg_depth_with_uniq on the card and the table NumpyReference "
+          f"[{card}]", flush=True)
+    return row
+
+
+def phase_examples(graphs: dict, card: str) -> dict:
+    """Phase 7: the examples on their fixtures (cuda against cpu), the
+    batch example at bench, the walk at unfused. ``graphs`` needs
+    ``bench`` and ``unfused`` as ``(g, dg or None, NumpyReference or
+    None)``; a missing reference is built from the graph on the card."""
+    from pollen_tpu_torch import native
+    from pollen_tpu_torch.device import build_graph
+
+    need(native.native_available(),
+         f"the native library did not build: {native.build_error}")
+    out = {"fixtures_s": phase_examples_fixtures(card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for name, phase in (("bench", phase_example_batch),
+                            ("unfused", phase_example_walk)):
+            g, dg, reference = graphs[name]
+            if reference is None:
+                reference = NumpyReference(dg or build_graph(g, "cuda"))
+            gfa = tmp / f"{name}.gfa"
+            gfa_text_file(g, gfa)
+            out[name] = phase(g, reference, gfa, tmp, card)
+            gfa.unlink()
     return out
 
 
@@ -4939,6 +5314,14 @@ def main() -> int:
         need(launches[name] > 0, f"{name} was never launched by phase 6")
     stamp("phase 6: the sharded path (one rank over NCCL; two ranks on the "
           "card over gloo) done")
+    stamp("phase 7: the examples (examples/torch/) start")
+    t7 = time.perf_counter()
+    examples = phase_examples(graphs, card)
+    examples["seconds"] = time.perf_counter() - t7
+    launches["ell_splitn_batch (K4)"] += examples["bench"]["launches"][
+        KERNELS["ell_splitn_batch (K4)"][2]]
+    stamp("phase 7: the examples on their fixtures (cuda against cpu), the "
+          "batch example at bench and the walk at unfused done")
     rows = [
         dict(name=name, route="cuda", source=src, replaces=replaces,
              launches=launches[name], max_abs_err=errs.max[name],
@@ -4950,6 +5333,7 @@ def main() -> int:
     print(json.dumps({"api_shell": api}))
     print(json.dumps({"native_spec_probes": phase5}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"examples": examples}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

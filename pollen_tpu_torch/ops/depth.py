@@ -41,12 +41,20 @@ def seg_depth_with_uniq(dg: TorchGraph) -> Tuple[torch.Tensor, torch.Tensor]:
     return depth, uniq
 
 
+def _as_mask(dg: TorchGraph, mask) -> torch.Tensor:
+    """A path mask, or a (Q, P) batch of them, as the reference takes
+    it (a numpy array or a tensor, bool or 0/1) as a tensor on the
+    graph's device. Every public query that takes masks converts here,
+    once, at its entry."""
+    return torch.as_tensor(mask, device=dg.device)
+
+
 def seg_depth_with_uniq_masked(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked (depth, uniq) over the sorted step index: the reference's
     portable XLA form, in plain torch."""
-    w = _ss.lookup_mask(path_mask.to(dg.device)[: dg.num_paths], dg.step_path_sorted)
+    w = _ss.lookup_mask(_as_mask(dg, path_mask)[: dg.num_paths], dg.step_path_sorted)
     depth = bounded_segment_sum(w, dg.seg_bounds)
     uniq = bounded_segment_sum(first_in_group_mask(w, dg.run_start), dg.seg_bounds)
     return depth, uniq
@@ -57,7 +65,7 @@ def seg_depth_with_uniq_runs(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked (depth, uniq) over the run-level index: the reference's
     portable XLA form, in plain torch."""
-    w = _ss.lookup_mask(path_mask.to(dg.device)[: dg.num_paths], dg.run_path)
+    w = _ss.lookup_mask(_as_mask(dg, path_mask)[: dg.num_paths], dg.run_path)
     depth = bounded_segment_sum(w * dg.run_count, dg.run_seg_bounds)
     uniq = bounded_segment_sum(w, dg.run_seg_bounds)
     return depth, uniq
@@ -69,7 +77,7 @@ def seg_depth_with_uniq_fused(
     """Masked (depth, uniq) on the "scan" route: the segment scan (K6)
     over the sorted steps, then the boundary stage (K7) on both cumsums,
     int32 on the graph's device."""
-    m = path_mask.to(dg.device)[: dg.num_paths]
+    m = _as_mask(dg, path_mask)[: dg.num_paths]
     args = (dg.step_path_sorted, dg.run_start, m)
     if plain:
         csums = _ss.masked_depth_cumsums_plain(*args)
@@ -85,7 +93,7 @@ def seg_depth_with_uniq_runs_fused(
     """Masked (depth, uniq) on the "runs" route: the run scan (K8) over
     the run index, then the boundary stage (K7) on both cumsums, int32
     on the graph's device."""
-    m = path_mask.to(dg.device)[: dg.num_paths]
+    m = _as_mask(dg, path_mask)[: dg.num_paths]
     args = (dg.run_path, dg.run_count, m)
     if plain:
         csums = _rs.masked_run_cumsums_plain(*args)
@@ -113,7 +121,7 @@ def seg_depth_with_uniq_cross(
     """Masked (depth, uniq) over the dense crossing matrix plus its
     residual sidecar."""
     p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
-    m = _cm.pad_mask(path_mask[: dg.num_paths], p_pad)
+    m = _cm.pad_mask(_as_mask(dg, path_mask)[: dg.num_paths], p_pad)
     fn = _cm.masked_cross_depth_plain if plain else _cm.masked_cross_depth
     depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
     if dg.cross_res_seg.numel():
@@ -135,7 +143,7 @@ def seg_depth_with_uniq_ell_parts(
     folded into the mid pair (tier-2 columns first). The heavy clip
     residual is applied."""
     _ell.check_ell_sub(dg.ell_sub)
-    m = path_mask.to(torch.int32)[: dg.num_paths]
+    m = _as_mask(dg, path_mask).to(torch.int32)[: dg.num_paths]
     has_mid = dg.cross_ell2.numel() > 0
     has_mid2 = dg.cross_ell3.numel() > 0
     has_heavy = dg.ell_heavy.numel() > 0
@@ -269,7 +277,7 @@ def seg_depth_with_uniq_ell_batch_parts(
     into the mid pair (tier-2 columns first), and the heavy clip
     residual is applied."""
     _ell.check_ell_sub(dg.ell_sub)
-    m = path_masks.to(torch.int32)[:, : dg.num_paths]
+    m = _as_mask(dg, path_masks).to(torch.int32)[:, : dg.num_paths]
     tiers = [(dg.cross_ell, dg.ell_k)]
     for tall, k in ((dg.cross_ell2, dg.ell_k2), (dg.cross_ell3, dg.ell_k3)):
         if tall.numel():
@@ -318,6 +326,7 @@ def seg_depth_with_uniq_ell_batch(
     segment order, one launch per ELL_BATCH_CHUNK masks. The reference
     also pads Q up to a power of two to bound Mosaic recompiles; a CUDA
     launch compiles nothing per shape, so a ragged Q runs as it is."""
+    path_masks = _as_mask(dg, path_masks)
     chunks = [
         _compose_ell(
             dg,
@@ -339,7 +348,7 @@ def seg_depth_with_uniq_cross_batch(
     """Batched masked (depth, uniq) over the dense crossing matrix plus
     its residual sidecar: int32 (Q, N) on the graph's device."""
     p_pad = dg.cross_matrix.shape[0] * (2 if dg.cross_nibble else 1)
-    m = _cm.pad_mask(path_masks[:, : dg.num_paths], p_pad)
+    m = _cm.pad_mask(_as_mask(dg, path_masks)[:, : dg.num_paths], p_pad)
     fn = _cm.batched_cross_depth_plain if plain else _cm.batched_cross_depth
     depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
     if dg.cross_res_seg.numel():
@@ -430,7 +439,7 @@ def masked_seg_depth(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Routed masked (depth, uniq) per segment, as host int32 arrays."""
-    path_mask = path_mask.to(dg.device)
+    path_mask = _as_mask(dg, path_mask)
     route, fn = masked_route_fn(dg)
     plain = dg.device.type != "cuda"
     if route == "ell":
@@ -472,7 +481,7 @@ def seg_depth_with_uniq_batch(
     returns host int32 (depth, uniq) of shape (Q, N), routed by
     :func:`batch_route`. The serving shape: one resident graph, a
     stream of subset queries."""
-    path_masks = path_masks.to(dg.device)
+    path_masks = _as_mask(dg, path_masks)
     route, fn = batch_route_fn(dg)
     plain = dg.device.type != "cuda"
     if route == "ell":
@@ -488,6 +497,7 @@ def seg_depth_with_uniq_runs_batch(
     """The batch's "runs" route: each mask through the runs route (K8,
     then K7), its answers gathered into int32 (Q, N) on the graph's
     device, one host copy for the batch."""
+    path_masks = _as_mask(dg, path_masks)
     q, n = path_masks.shape[0], dg.num_segments
     depth = torch.empty((q, n), dtype=torch.int32, device=dg.device)
     uniq = torch.empty_like(depth)

@@ -21,6 +21,13 @@ log = logging.getLogger("pollen_tpu_torch")
 
 _traces = itertools.count()
 
+# Idle time kept inside a card's trace window on each side of the block.
+# The profiler keeps only the device events whose timestamps fall inside
+# its window, and on an H100 under host load those timestamps can read
+# milliseconds off the calls that launched them (probes/trace_skew.py):
+# a block traced from its first instruction then lost every kernel event.
+_TRACE_MARGIN_S = 0.05
+
 
 @contextlib.contextmanager
 def stopwatch(label: str) -> Iterator[None]:
@@ -36,7 +43,9 @@ def stopwatch(label: str) -> Iterator[None]:
 def device_trace(log_dir: str) -> Iterator[None]:
     """Trace the block with ``torch.profiler`` (host activity, and the
     card's when one is present) and write a Chrome trace (view in
-    Perfetto or chrome://tracing) into ``log_dir``."""
+    Perfetto or chrome://tracing) into ``log_dir``. On the card the
+    window opens and closes ``_TRACE_MARGIN_S`` away from the block, with
+    the card idle, so that a skew of the device clock keeps its events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -44,11 +53,15 @@ def device_trace(log_dir: str) -> Iterator[None]:
     activities = [ProfilerActivity.CPU]
     if on_card:
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        if on_card:
+            time.sleep(_TRACE_MARGIN_S)
         yield
         if on_card:
             torch.cuda.synchronize()
+            time.sleep(_TRACE_MARGIN_S)
     name = f"pollen_tpu_torch.{os.getpid()}.{next(_traces)}.pt.trace.json"
     prof.export_chrome_trace(os.path.join(log_dir, name))
 

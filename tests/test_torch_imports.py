@@ -143,7 +143,7 @@ def test_port_imports_nothing_of_jax_or_pollen_tpu(tmp_path):
 
 SOURCES = sorted((REPO / "pollen_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
-]
+] + sorted((REPO / "examples" / "torch").glob("*.py"))
 
 
 @pytest.mark.parametrize(

@@ -1,9 +1,11 @@
 """The port's profiling utilities and entry point: ``stopwatch`` logs to
 the ``pollen_tpu_torch`` logger, ``device_trace`` writes a Chrome trace
-on the CPU, ``time_best`` returns a non-negative best time and
-synchronizes only on a card, and ``entry("cpu")``'s forward gives the
-reference ``entry()``'s depth and unique depth on the same tiny graph,
-as does the routed ``masked_seg_depth`` on its index.
+on the CPU (and waits its window margin only on a card), the trace-skew
+probe pairs each event on the card with its launch, ``time_best``
+returns a non-negative best time and synchronizes only on a card, and
+``entry("cpu")``'s forward gives the reference ``entry()``'s depth and
+unique depth on the same tiny graph, as does the routed
+``masked_seg_depth`` on its index.
 """
 
 import json
@@ -17,6 +19,7 @@ import __graft_entry__ as ref_entry
 from pollen_tpu_torch import profiling
 from pollen_tpu_torch.entry import entry, tiny_arena
 from pollen_tpu_torch.ops.depth import _best_masked_impl, masked_seg_depth
+from pollen_tpu_torch.probes import trace_skew
 
 torch.set_num_threads(1)
 
@@ -54,6 +57,50 @@ def test_device_trace_writes_one_file_a_trace(tmp_path):
         with profiling.device_trace(str(tmp_path)):
             torch.ones(4).sum()
     assert len(list(tmp_path.iterdir())) == 2
+
+
+def test_device_trace_waits_no_margin_on_the_cpu(tmp_path, monkeypatch):
+    """The window's margin and the synchronizations are the card's: a
+    trace on the CPU neither sleeps nor synchronizes."""
+    calls = []
+    monkeypatch.setattr(profiling.time, "sleep", calls.append)
+    monkeypatch.setattr(torch.cuda, "synchronize", calls.append)
+    with profiling.device_trace(str(tmp_path)):
+        torch.ones(4).sum()
+    assert calls == []
+    assert profiling._TRACE_MARGIN_S > 0
+
+
+@pytest.mark.parametrize("skew_us, kernels", [(12.5, 2), (-5334.1, 0)])
+def test_trace_offsets_pair_events_with_their_launches(skew_us, kernels):
+    """Each event on the card is paired with the runtime call of the same
+    correlation. A device clock 5.3 ms behind the host's puts the two
+    kernels before the window, which drops them: their launches still
+    count, the late copy alone is kept."""
+    events = [{"cat": "Trace", "ts": 0.0, "dur": 11478.3}]
+    for corr, (name, ts) in enumerate([("cudaLaunchKernel", 1483.8),
+                                       ("cudaLaunchKernel", 2055.5),
+                                       ("cudaMemcpyAsync", 5560.8)]):
+        events.append({"cat": "cuda_runtime", "name": name, "ts": ts,
+                       "args": {"correlation": corr}})
+        if ts + skew_us >= 0:  # the window keeps what starts inside it
+            events.append({"cat": "kernel" if "Kernel" in name
+                           else "gpu_memcpy", "name": f"op{corr}",
+                           "ts": ts + skew_us, "args": {"correlation": corr}})
+    got = trace_skew.offsets(events)
+    assert got["launches"] == 2
+    assert got["kernels"] == kernels
+    assert got["min_us"] == pytest.approx(skew_us)
+    assert got["max_us"] == pytest.approx(skew_us)
+    assert trace_skew.offsets([])["min_us"] is None
+
+
+def test_trace_skew_probe_runs_on_the_cpu():
+    """The probe's traced child runs end to end in a process of its own;
+    on the CPU its trace has no launches and no events on a card."""
+    (row,) = trace_skew.run(1, 0, [0.0], (3000, 512, 8), device="cpu")
+    assert row == {"run": 0, "margin_ms": 0.0, "launches": 0, "kernels": 0,
+                   "min_us": None, "max_us": None}
 
 
 def test_time_best_returns_a_time():
