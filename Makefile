@@ -1,12 +1,16 @@
 # Development drivers (reference analogue: the repo Makefile + slow_odgi/Makefile).
 
-.PHONY: test test-fast goldens bench benchsuite native lint typecheck clean
+.PHONY: test test-scale-torch test-fast goldens bench benchsuite native lint typecheck clean
 
 test:
 	python -m pytest tests/ -q
 
 test-scale:
 	POLLEN_SCALE_TEST=1 POLLEN_CHR8_STEPS=8000000 python -m pytest tests/test_scale.py -q
+
+# The port's scale test on the CPU (tests/test_torch_scale.py).
+test-scale-torch:
+	POLLEN_SCALE_TEST=1 POLLEN_CHR8_STEPS=8000000 python -m pytest tests/test_torch_scale.py -q
 
 test-fast:
 	python -m pytest tests/ -q -x

@@ -86,8 +86,10 @@ device op (``seg_degree``, ``step_intervals``, ``_unsupported_pairs``,
 ``positions_in_path`` at 4,096 offsets, ``_touch_matrix``,
 ``_reverse_heavy_paths``, ``interval_depth`` at 1,000 bp windows) on
 cuda against the same function on a CPU copy and a numpy formula,
-exact, and times each (CUDA-event wall, CUDA-graph replay where the op
-allows capture, profiler busy time, idle share, byte bound); then times
+exact (``positions_in_path`` also given numpy offsets, equal to its
+tensor-input answer), and times each (CUDA-event wall, CUDA-graph
+replay where the op allows capture, profiler busy time, idle share,
+byte bound); then times
 CLI runs end to end over ``-i chr8.flatgfa`` (written by ``-o``):
 ``degree``, ``validate``, ``position``, ``window-depth``, ``overlap``;
 ``flip`` and ``flatten`` at bench with links, where their text takes
@@ -104,7 +106,9 @@ example.gaf) against ``--device cpu``, the ``seq-export`` /
 depth goldens, and one serve stream of them. Its scale phase holds
 ``chunk_reads`` over a seeded GAF of 2^20 reads of chr8_third (1-31
 steps each) and ``node_depth_accel`` at 2^16 nodes against a CPU copy
-and a numpy formula, exact, times each as the graph commands' ops
+and a numpy formula, exact (each, and ``node_depth_accel_simple``, also
+given numpy inputs beside a cuda tensor, equal to its tensor-input
+answer), times each as the graph commands' ops
 (their rows join the ``device_ops`` line), and times ``gaf -b`` (split
 into load, ingest, parse and chunk), ``gaf``, ``pangenotype``,
 ``bench --wcl``, ``seq-*``, ``inject`` and ``extract`` end to end.
@@ -357,13 +361,6 @@ SCAN_SCALE = {
 SCAN_PS = (60, 200, 2040, 2300, 2**17, 2**17 + 300)
 SCAN_BLOCK = 128 * 128  # the reference's scan block, the indexes' padding
 L2_BYTES = 50 * 2**20
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; int8 tensor
-# core ops/s (the dense mask products: 0/1 masks and counts <= 127 are
-# exact in int8); float32 ops/s outside the tensor cores, taken as the
-# CUDA cores' rate for the integer work of slot decoding and scans.
-HBM_BPS = 3.35e12
-INT8_TENSOR_OPS = 1979e12
-CUDA_CORE_OPS = 67e12
 
 
 class SmokeError(Exception):
@@ -493,7 +490,10 @@ def launch_counts() -> dict:
 
 def bound(nbytes, core_ops=0, tensor_ops=0):
     """(least ms, what bounds it): the bytes over HBM_BPS against the
-    operations over their peaks."""
+    operations over their peaks (``pollen_tpu_torch/probes/timing.py``)."""
+    from pollen_tpu_torch.probes.timing import (
+        CUDA_CORE_OPS, HBM_BPS, INT8_TENSOR_OPS)
+
     by_bytes = nbytes / HBM_BPS * 1e3
     by_ops = (core_ops / CUDA_CORE_OPS + tensor_ops / INT8_TENSOR_OPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
@@ -2835,6 +2835,20 @@ def max_err(got, want) -> float:
     return worst
 
 
+def need_same_from_numpy(name, from_numpy, from_tensors):
+    """An op given the reference's numpy arrays on the card answers as
+    it does given tensors: every output on cuda, of the same dtype and
+    shape, equal exactly."""
+    import torch
+
+    pairs = list(zip(from_numpy, from_tensors))
+    need(len(pairs) == len(from_tensors) == len(from_numpy)
+         and all(a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+                 for a, b in pairs),
+         f"{name}: numpy inputs on cuda differ from tensor inputs")
+    print(f"{name}: numpy inputs on cuda equal tensor inputs", flush=True)
+
+
 def device_op_row(name, reference, shape, fn, check, nbytes, card,
                   on_card=True):
     """One ``device_ops`` row: ``fn``'s answer held by ``check`` (against
@@ -2842,7 +2856,7 @@ def device_op_row(name, reference, shape, fn, check, nbytes, card,
     the largest error), then its CUDA-event wall, CUDA-graph device time
     (an op that answers on the host, ``on_card=False``, cannot be
     captured), profiler busy time, idle share and byte bound."""
-    from pollen_tpu_torch.probes.timing import replay_us
+    from pollen_tpu_torch.probes.timing import HBM_BPS, replay_us
 
     got = fn()
     if on_card:
@@ -2928,6 +2942,10 @@ def phase_graph_ops(graphs: dict, card: str) -> list:
         interval_depth=window_depth.interval_depth,
     )
     cuda_args, cpu_args = args_of(dg), args_of(dg_cpu)
+    # The reference's numpy offsets, converted at the op's entry.
+    need_same_from_numpy(
+        "positions_in_path", position.positions_in_path(dg, pid, offsets),
+        position.positions_in_path(*cuda_args["positions_in_path"]))
     idx_bytes = 8 * s + 4 * n  # steps (int64), seg_len
     nbytes = dict(
         seg_degree=4 * (n + 1) + 4 * n,
@@ -3271,6 +3289,13 @@ def phase_gaf_ops(graphs: dict, card: str, kept: dict) -> list:
         return max(err, max_err((k, ga[hit], gb[hit]),
                                 (kind, a[hit], b[hit])))
 
+    # The reference's numpy arrays (uint32 handles) beside the graph's
+    # seg_len on cuda, converted at the op's entry.
+    need_same_from_numpy(
+        "chunk_reads", gaf_op.chunk_reads(
+            dg.seg_len.to("cuda"), reads.steps, read_id, reads.start,
+            reads.end),
+        gaf_op.chunk_reads(*chunk_args("cuda")))
     rows = [device_op_row(
         "chunk_reads", "pollen_tpu/ops/gaf.py:259",
         f"T={t} read steps, R={r} reads on chr8_third (N={g.num_segments})",
@@ -3310,6 +3335,17 @@ def phase_gaf_ops(graphs: dict, card: str, kept: dict) -> list:
                           torch.from_numpy(consider).cuda(), p),
         check_accel, 4 * n * e + 4 * (p + 1) + 2 * 4 * n, card,
     ))
+    # A numpy consider beside path_ids on cuda; the single PE on the
+    # first 256 nodes (it loops over nodes on the host).
+    ids_cuda = torch.from_numpy(ids).cuda()
+    cons_cuda = torch.from_numpy(consider).cuda()
+    need_same_from_numpy(
+        "node_depth_accel", node_depth_accel(ids_cuda, consider, p),
+        node_depth_accel(ids_cuda, cons_cuda, p))
+    need_same_from_numpy(
+        "node_depth_accel_simple",
+        node_depth_accel_simple(ids_cuda[:256], consider, p),
+        node_depth_accel_simple(ids_cuda[:256], cons_cuda, p))
 
     e2e = {}
     with tempfile.TemporaryDirectory() as tmp:

@@ -22,16 +22,25 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import op_tensor
+
 
 def _clamped(ids: torch.Tensor, size: int) -> torch.Tensor:
     """JAX's gather index rule for ``x[ids]`` with ``len(x) == size``."""
     return torch.where(ids < 0, ids + size, ids).clamp(0, size - 1)
 
 
-def _consider(consider: torch.Tensor) -> torch.Tensor:
+def _inputs(path_ids, consider) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both memories as tensors on the device of ``path_ids`` (the CPU
+    when it is a host array): each argument a tensor on that device or,
+    as the reference takes them, a numpy array, converted once (int32);
+    ``consider`` is an int32 copy with slot 0 cleared."""
+    dev = path_ids.device if isinstance(path_ids, torch.Tensor) else "cpu"
+    path_ids = op_tensor(path_ids, dev, torch.int32)
+    consider = op_tensor(consider, dev, torch.int32)
     consider = consider.to(torch.int32).clone()
     consider[:1].zero_()  # a fill: no host copy, so graph-capturable
-    return consider
+    return path_ids, consider
 
 
 def node_depth_accel(
@@ -40,7 +49,7 @@ def node_depth_accel(
     max_p: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(depth int32[N], uniq int32[N]) for all node PEs at once."""
-    consider = _consider(consider)
+    path_ids, consider = _inputs(path_ids, consider)
     ids = path_ids.long()
 
     # depth: count considered crossings (slot 0 never counts).
@@ -83,7 +92,7 @@ def node_depth_accel_simple(
     node. The node axis is a sequential loop carrying the PE through the
     node memories, each PE step the reference's compare; outputs equal
     the batched PE array's."""
-    consider = _consider(consider)
+    path_ids, consider = _inputs(path_ids, consider)
     ids = torch.arange(max_p + 1, device=path_ids.device)
     n = path_ids.shape[0]
     depth = torch.zeros(n, dtype=torch.int32, device=path_ids.device)

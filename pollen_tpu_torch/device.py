@@ -152,6 +152,29 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def op_tensor(x, device, dtype=None, move: bool = False) -> torch.Tensor:
+    """An array argument of a public op as a tensor on ``device``, the
+    device the op runs on, converted once at the op's entry. A host array
+    (numpy, as the reference's jitted ops take it) becomes a ``dtype``
+    tensor there, uint32 values (packed handles) by their int32 bits when
+    ``dtype`` is int32. A tensor is taken as it is; one on another device
+    is refused, since moving it would be a copy inside the op, unless
+    ``move`` (the depth queries' masks and ``positions_in_path``'s
+    offsets, which those ops have always moved to the graph, cast to
+    ``dtype``)."""
+    device = torch.device(device)
+    if isinstance(x, torch.Tensor):
+        if move:
+            return x.to(device=device, dtype=dtype)
+        if x.device != device:
+            raise ValueError(f"an argument on {x.device}, the op runs on {device}")
+        return x
+    x = np.asarray(x)
+    if x.dtype == np.uint32 and dtype == torch.int32:
+        x = x.view(np.int32)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def _tensor(x: np.ndarray, device: torch.device) -> torch.Tensor:
     x = np.ascontiguousarray(x)
     if x.dtype == np.uint32:

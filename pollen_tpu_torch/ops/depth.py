@@ -25,6 +25,7 @@ from ..device import (
     TorchGraph,
     bounded_segment_sum,
     first_in_group_mask,
+    op_tensor,
 )
 from ..kernels import crossmat as _cm
 from ..kernels import ellscan as _ell
@@ -46,7 +47,7 @@ def _as_mask(dg: TorchGraph, mask) -> torch.Tensor:
     it (a numpy array or a tensor, bool or 0/1) as a tensor on the
     graph's device. Every public query that takes masks converts here,
     once, at its entry."""
-    return torch.as_tensor(mask, device=dg.device)
+    return op_tensor(mask, dg.device, move=True)
 
 
 def seg_depth_with_uniq_masked(

@@ -295,10 +295,22 @@ def chunk_reads(
 
     kind is NONE / ALL / PARTIAL; for PARTIAL, [a, b) is the in-segment
     bp range (orientation-respecting, as in the reference). All on the
-    inputs' device, with no host round trip.
+    device of ``seg_len`` (the CPU when it is a host array), with no
+    host round trip. Each argument is a tensor on that device or, as the
+    reference takes them, a numpy array (``steps`` uint32 handles or
+    their int32 bits), converted once, here; a tensor on another device
+    is refused.
     """
     import torch
 
+    from ..device import op_tensor
+
+    dev = seg_len.device if isinstance(seg_len, torch.Tensor) else "cpu"
+    seg_len = op_tensor(seg_len, dev, torch.int32)
+    steps = op_tensor(steps, dev, torch.int32)
+    read_id = op_tensor(read_id, dev, torch.int32)
+    read_start = op_tensor(read_start, dev, torch.int64)
+    read_end = op_tensor(read_end, dev, torch.int64)
     # Handles are uint32 bits in int32: `>>` is arithmetic, so mask.
     seg = (steps >> 1) & 0x7FFFFFFF
     lens = seg_len[seg.long()].long()

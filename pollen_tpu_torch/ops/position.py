@@ -18,20 +18,22 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..device import TorchGraph
+from ..device import TorchGraph, op_tensor
 from ..flatgfa import GraphArrays
 
 
 def positions_in_path(
-    dg: TorchGraph, path_id: int, offsets: torch.Tensor
+    dg: TorchGraph, path_id: int, offsets
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """For each query offset along one path, the step's packed handle,
-    the offset within that segment, and a validity flag.
+    the offset within that segment, and a validity flag. ``offsets`` is
+    a tensor or a numpy array, as the reference takes it; it is taken to
+    the graph's device as int64 once, here.
 
     Returns (handles int64[Q], seg_offsets int64[Q], valid bool[Q]).
     """
     s = dg.num_steps
-    offsets = offsets.to(device=dg.device, dtype=torch.int64)
+    offsets = op_tensor(offsets, dg.device, torch.int64, move=True)
     if s == 0:
         zeros = torch.zeros_like(offsets)
         return zeros, offsets.clone(), offsets < 0

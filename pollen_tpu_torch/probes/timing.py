@@ -23,6 +23,15 @@ import os
 import statistics
 import time
 
+# Published H100 SXM peaks (NVIDIA data sheet), the bounds' rates: HBM
+# bytes/s; int8 tensor core ops/s (the dense mask products: 0/1 masks and
+# counts <= 127 are exact in int8); float32 ops/s outside the tensor
+# cores, taken as the CUDA cores' rate for the integer work of slot
+# decoding and scans.
+HBM_BPS = 3.35e12
+INT8_TENSOR_OPS = 1979e12
+CUDA_CORE_OPS = 67e12
+
 REPS = 5  # timed replays (or host calls); the median is kept
 TARGET_US = 4000.0  # a replay's length that sizes the graph
 MIN_CALLS, MAX_CALLS = 8, 200  # calls captured in one graph

@@ -135,3 +135,24 @@ def exchange_ingest(rank, world, device, paths) -> dict:
         }
     out["foreign_modules"] = dryrun.foreign_modules()
     return out
+
+
+def scale_sharded(rank, world, device, n_steps, n_segs, n_paths) -> dict:
+    """test_torch_scale.py's job: every rank synthesises the same seeded
+    graph, ingests it, and answers the all-paths query sharded over the
+    job, by the plain step-chunk form and by the fused scan form."""
+    from pollen_tpu_torch.device import build_graph
+    from pollen_tpu_torch.parallel import dryrun, sharded
+    from pollen_tpu_torch.synth import synth_graph
+
+    mesh = sharded.make_mesh()
+    dg = build_graph(synth_graph(n_steps, n_segs, n_paths), device,
+                     cross_matrix="never")
+    sg = sharded.shard_device_graph(dg, mesh)
+    mask = sharded.full_mask(n_paths, device)
+    out = {}
+    for name, fn in (("seg", sharded.sharded_seg_depth_fn),
+                     ("fused", sharded.sharded_seg_depth_fused_fn)):
+        out[name] = tuple(host(x) for x in fn(mesh)(sg, mask))
+    out["foreign_modules"] = dryrun.foreign_modules()
+    return out
