@@ -1,0 +1,8 @@
+"""roofline.batch: the least time of a call at 3.35 TB/s (portbench.roofline)
+over the kernels' time per traced call (copies left out), % (batch entry)."""
+
+from portbench import layers
+
+
+def read(run):
+    return layers.roofline_pct(run, "batch")

@@ -1,0 +1,60 @@
+"""Every configuration, traffic mix and metric reader is a file of its
+own that the harness finds by the name in BENCHMARK.json, and every
+such file is named there."""
+
+import json
+import re
+
+import pytest
+
+from portbench import registry
+
+BENCH = registry.benchmark()
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+
+
+def test_every_named_file_is_found():
+    for c in BENCH["configs"]:
+        cfg = registry.config(c["name"])
+        assert cfg["name"] == c["name"]
+        assert c["file"] == f"portbench/configs/{c['name']}.json"
+        assert (registry.ROOT / c["file"]).is_file()
+    for w in BENCH["workloads"]:
+        assert registry.workload(w["name"]) == w
+        assert registry.config(w["config"])
+        tr = registry.traffic(w["traffic"])
+        assert tr["name"] == w["traffic"] and tr["entry"] in ("single", "batch")
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert callable(registry.reader(m["name"]))
+
+
+def test_every_file_is_named():
+    names = {d: {p.stem for p in (registry.HERE / d).glob("*.json")}
+             for d in ("configs", "traffic")}
+    assert names["configs"] == {c["name"] for c in BENCH["configs"]}
+    assert names["traffic"] == {w["traffic"] for w in BENCH["workloads"]}
+    readers = {p.name[:-3] for p in (registry.HERE / "metrics").glob("*.py")}
+    assert readers == {m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]}
+
+
+def test_names_and_contract_shape():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert BENCH["paths"] == ["portbench"]
+    every = BENCH["configs"] + BENCH["workloads"] + BENCH["end_to_end"] + BENCH["per_layer"]
+    for e in every:
+        assert NAME.match(e["name"]), e["name"]
+    for w in BENCH["workloads"]:
+        assert w["chips"] == 1 and len(w["why"]) <= 200
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
+        for cell in m.get("workloads", []):
+            assert m["moves"] in {e["name"] for e in registry.metrics(cell, "end_to_end")}
+    assert len(json.dumps(BENCH)) < 64 * 1024
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_reports_setup_another_and_a_layer(cell):
+    e2e = {m["name"] for m in registry.metrics(cell, "end_to_end")}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    assert registry.metrics(cell, "per_layer")
