@@ -19,6 +19,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..flatgfa import GraphArrays
 
 from ..device import (
@@ -48,6 +49,19 @@ def _as_mask(dg: TorchGraph, mask) -> torch.Tensor:
     graph's device. Every public query that takes masks converts here,
     once, at its entry."""
     return op_tensor(mask, dg.device, move=True)
+
+
+def _to_host(*parts) -> list:
+    """Host numpy copies of the answers ``parts`` (None stays None), all
+    in one span ``pollen.depth.to_host`` (no gap of the caller's between
+    two copies), with their bytes added to the counter
+    ``depth.to_host_bytes``. A copy into pageable host memory waits for
+    the device work queued before it, so the span holds that wait too."""
+    with profiling.span("pollen.depth.to_host"):
+        out = [None if x is None else x.cpu().numpy() for x in parts]
+    profiling.count("depth.to_host_bytes",
+                    sum(a.nbytes for a in out if a is not None))
+    return out
 
 
 def seg_depth_with_uniq_masked(
@@ -241,21 +255,25 @@ def _compose_ell(dg: TorchGraph, parts) -> Tuple[np.ndarray, np.ndarray]:
     """Per-class ``(d1, u1, d2, u2, dh, uh)`` parts of shape (Q, class
     columns) -> host int32 (depth, uniq) of shape (Q, N) in natural
     segment order: composed and un-permuted by ``ell_order`` on the host,
-    as the reference does."""
-    parts = [None if x is None else x.cpu().numpy() for x in parts]
-    pieces = _ell_pieces(dg, parts)
-    n = dg.num_segments
-    if pieces is None:
-        return parts[0][:, :n], parts[1][:, :n]
-    dparts, uparts, ne = pieces
-    empty = np.zeros((parts[0].shape[0], ne), np.int32)
-    d = np.concatenate(dparts + [empty], axis=1)
-    u = np.concatenate(uparts + [empty], axis=1)
-    if dg.ell_order.shape[0]:
-        inv = np.empty(n, np.int64)
-        inv[dg.ell_order.cpu().numpy()] = np.arange(n)
-        d, u = d[:, inv], u[:, inv]
-    return d, u
+    as the reference does (the span ``pollen.depth.compose``; the parts'
+    and the order's copies are one ``pollen.depth.to_host`` in it)."""
+    with profiling.span("pollen.depth.compose"):
+        n = dg.num_segments
+        *parts, order = _to_host(
+            *parts, dg.ell_order if dg.ell_order.shape[0] else None
+        )
+        pieces = _ell_pieces(dg, parts)
+        if pieces is None:
+            return parts[0][:, :n], parts[1][:, :n]
+        dparts, uparts, ne = pieces
+        empty = np.zeros((parts[0].shape[0], ne), np.int32)
+        d = np.concatenate(dparts + [empty], axis=1)
+        u = np.concatenate(uparts + [empty], axis=1)
+        if order is not None:
+            inv = np.empty(n, np.int64)
+            inv[order] = np.arange(n)
+            d, u = d[:, inv], u[:, inv]
+        return d, u
 
 
 def seg_depth_with_uniq_ell(
@@ -263,7 +281,8 @@ def seg_depth_with_uniq_ell(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked (depth, uniq) over the tiered split ELL index in natural
     segment order, composed and un-permuted on the host (CPU tensors)."""
-    parts = seg_depth_with_uniq_ell_parts(dg, path_mask, plain=plain)
+    with profiling.span("pollen.depth.device"):
+        parts = seg_depth_with_uniq_ell_parts(dg, path_mask, plain=plain)
     d, u = _compose_ell(dg, [None if x is None else x[None] for x in parts])
     return torch.from_numpy(d[0]), torch.from_numpy(u[0])
 
@@ -328,15 +347,13 @@ def seg_depth_with_uniq_ell_batch(
     also pads Q up to a power of two to bound Mosaic recompiles; a CUDA
     launch compiles nothing per shape, so a ragged Q runs as it is."""
     path_masks = _as_mask(dg, path_masks)
-    chunks = [
-        _compose_ell(
-            dg,
-            seg_depth_with_uniq_ell_batch_parts(
+    chunks = []
+    for i in range(0, path_masks.shape[0], ELL_BATCH_CHUNK):
+        with profiling.span("pollen.depth.device"):
+            parts = seg_depth_with_uniq_ell_batch_parts(
                 dg, path_masks[i : i + ELL_BATCH_CHUNK], plain=plain
-            ),
-        )
-        for i in range(0, path_masks.shape[0], ELL_BATCH_CHUNK)
-    ]
+            )
+        chunks.append(_compose_ell(dg, parts))
     return (
         np.concatenate([d for d, _ in chunks]),
         np.concatenate([u for _, u in chunks]),
@@ -439,15 +456,26 @@ def masked_route_fn(dg: TorchGraph) -> Tuple[str, Callable]:
 def masked_seg_depth(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Routed masked (depth, uniq) per segment, as host int32 arrays."""
-    path_mask = _as_mask(dg, path_mask)
-    route, fn = masked_route_fn(dg)
-    plain = dg.device.type != "cuda"
-    if route == "ell":
-        # Composed and un-permuted on the host.
-        fn = seg_depth_with_uniq_ell
-    depth, uniq = fn(dg, path_mask, plain=plain)
-    return depth.cpu().numpy(), uniq.cpu().numpy()
+    """Routed masked (depth, uniq) per segment, as host int32 arrays.
+    Spans: ``pollen.depth.single`` around the call; in it
+    ``pollen.depth.mask`` (the mask's upload), ``pollen.depth.route``
+    (the router), ``pollen.depth.device`` (the route's device part,
+    enqueued) and ``pollen.depth.to_host`` (the answers' copies) or, on
+    the ELL route, ``pollen.depth.compose``. Counts ``depth.calls``."""
+    with profiling.span("pollen.depth.single"):
+        with profiling.span("pollen.depth.mask"):
+            path_mask = _as_mask(dg, path_mask)
+        with profiling.span("pollen.depth.route"):
+            route, fn = masked_route_fn(dg)
+        profiling.count("depth.calls")
+        plain = dg.device.type != "cuda"
+        if route == "ell":
+            # Composed and un-permuted on the host.
+            depth, uniq = seg_depth_with_uniq_ell(dg, path_mask, plain=plain)
+            return depth.numpy(), uniq.numpy()
+        with profiling.span("pollen.depth.device"):
+            depth, uniq = fn(dg, path_mask, plain=plain)
+        return tuple(_to_host(depth, uniq))
 
 
 def batch_route(dg: TorchGraph) -> str:
@@ -481,15 +509,21 @@ def seg_depth_with_uniq_batch(
     """Many masked queries at once: ``path_masks`` is (Q, P) 0/1;
     returns host int32 (depth, uniq) of shape (Q, N), routed by
     :func:`batch_route`. The serving shape: one resident graph, a
-    stream of subset queries."""
-    path_masks = _as_mask(dg, path_masks)
-    route, fn = batch_route_fn(dg)
-    plain = dg.device.type != "cuda"
-    if route == "ell":
-        # Composed on the host ELL_BATCH_CHUNK masks at a time.
-        return seg_depth_with_uniq_ell_batch(dg, path_masks, plain=plain)
-    depth, uniq = fn(dg, path_masks, plain=plain)
-    return depth.cpu().numpy(), uniq.cpu().numpy()
+    stream of subset queries. Spans as :func:`masked_seg_depth`'s, under
+    ``pollen.depth.batch``."""
+    with profiling.span("pollen.depth.batch"):
+        with profiling.span("pollen.depth.mask"):
+            path_masks = _as_mask(dg, path_masks)
+        with profiling.span("pollen.depth.route"):
+            route, fn = batch_route_fn(dg)
+        profiling.count("depth.calls")
+        plain = dg.device.type != "cuda"
+        if route == "ell":
+            # Composed on the host ELL_BATCH_CHUNK masks at a time.
+            return seg_depth_with_uniq_ell_batch(dg, path_masks, plain=plain)
+        with profiling.span("pollen.depth.device"):
+            depth, uniq = fn(dg, path_masks, plain=plain)
+        return tuple(_to_host(depth, uniq))
 
 
 def seg_depth_with_uniq_runs_batch(

@@ -1,0 +1,10 @@
+"""entry_ms.batch: the mean root span ``pollen.depth.batch`` of the
+profiled calls less its ``device``, ``to_host`` and ``compose``
+children (the mask's upload, the router, the call's own Python), the
+program's clock, ms (batch entry)."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.entry_ms(run, "batch")

@@ -1,0 +1,9 @@
+"""ingest_runs_s: seconds a build in ``build_graph``'s stage
+``pollen.ingest.runs`` (counters ``ingest.runs.s`` over
+``ingest.builds``), s."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.ingest_stage_s(run, "runs")

@@ -1,0 +1,9 @@
+"""to_host_gbps.batch: the bytes a call copies to the host (counters
+``depth.to_host_bytes`` over ``depth.calls``) over to_host_ms.batch,
+GB/s (batch entry)."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.to_host_gbps(run, "batch")

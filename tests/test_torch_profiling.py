@@ -50,6 +50,16 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     assert trace.name.endswith(".pt.trace.json")
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("cumsum" in str(e.get("name", "")) for e in events)
+    # The block is the span pollen.trace_block: a reader cuts the
+    # window's margins there. It holds the block's ops.
+    (block,) = [e for e in events if e.get("name") == "pollen.trace_block"
+                and e.get("ph") == "X"]
+    assert block["cat"] in ("cpu_op", "user_annotation")
+    lo, hi = block["ts"], block["ts"] + block["dur"]
+    ops = [e for e in events if "cumsum" in str(e.get("name", ""))
+           and e.get("cat") == "cpu_op"]
+    assert ops and all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in ops)
+    assert "pollen.trace_block" in [s.name for s in profiling.spans()]
 
 
 def test_device_trace_writes_one_file_a_trace(tmp_path):
