@@ -51,14 +51,49 @@ def _as_mask(dg: TorchGraph, mask) -> torch.Tensor:
     return op_tensor(mask, dg.device, move=True)
 
 
+def _pinned_copies(parts: list) -> Optional[list]:
+    """Page-locked host copies of ``parts``, tensors on one CUDA device,
+    complete on return: a buffer each from torch's caching host
+    allocator, the copies enqueued on the current stream, one wait for
+    that stream. Counts the buffers asked for (``depth.to_host_pinned``).
+    None where page-locking fails; nothing is copied then."""
+    try:
+        hosts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in parts]
+    except RuntimeError:
+        return None
+    profiling.count("depth.to_host_pinned", len(hosts))
+    for h, x in zip(hosts, parts):
+        h.copy_(x, non_blocking=True)
+    torch.cuda.current_stream(parts[0].device).synchronize()
+    return hosts
+
+
 def _to_host(*parts) -> list:
-    """Host numpy copies of the answers ``parts`` (None stays None), all
-    in one span ``pollen.depth.to_host`` (no gap of the caller's between
-    two copies), with their bytes added to the counter
-    ``depth.to_host_bytes``. A copy into pageable host memory waits for
-    the device work queued before it, so the span holds that wait too."""
+    """Host numpy copies of the answers ``parts`` (None stays None; the
+    others on the graph's device), all in one span
+    ``pollen.depth.to_host`` (no gap of the caller's between two
+    copies), with their bytes added to the counter
+    ``depth.to_host_bytes``. The span holds the wait for the device work
+    queued before the copies.
+
+    From a CUDA graph the copies land in page-locked memory from torch's
+    caching host allocator (:func:`_pinned_copies`), which the returned
+    arrays hold: once the caller drops an array (and every view of it),
+    a later call of the same size reuses its block, so no call touches
+    fresh pages, and arrays of two calls never share memory. The
+    allocator keeps the process's peak of answers held at once, each
+    block rounded up to a power of two; ``torch._C._host_emptyCache()``
+    (``torch.accelerator.empty_host_cache()`` in later torch) gives the
+    blocks no answer holds back. Where page-locking fails, pageable
+    ``.cpu()`` copies; from a CPU graph, the parts themselves, as
+    before."""
     with profiling.span("pollen.depth.to_host"):
-        out = [None if x is None else x.cpu().numpy() for x in parts]
+        live = [x for x in parts if x is not None]
+        host = _pinned_copies(live) if live and live[0].is_cuda else None
+        if host is None:
+            host = [x.cpu() for x in live]
+        it = iter(host)
+        out = [None if x is None else next(it).numpy() for x in parts]
     profiling.count("depth.to_host_bytes",
                     sum(a.nbytes for a in out if a is not None))
     return out
@@ -456,8 +491,12 @@ def masked_route_fn(dg: TorchGraph) -> Tuple[str, Callable]:
 def masked_seg_depth(
     dg: TorchGraph, path_mask: torch.Tensor
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Routed masked (depth, uniq) per segment, as host int32 arrays.
-    Spans: ``pollen.depth.single`` around the call; in it
+    """Routed masked (depth, uniq) per segment, as host int32 arrays,
+    complete on return. From a CUDA graph they live in page-locked host
+    memory that torch's caching host allocator hands to a later call once
+    the caller drops them; the process keeps the peak it held at once,
+    each block rounded up to a power of two (:func:`_to_host` says how to
+    give it back). Spans: ``pollen.depth.single`` around the call; in it
     ``pollen.depth.mask`` (the mask's upload), ``pollen.depth.route``
     (the router), ``pollen.depth.device`` (the route's device part,
     enqueued) and ``pollen.depth.to_host`` (the answers' copies) or, on
@@ -509,8 +548,10 @@ def seg_depth_with_uniq_batch(
     """Many masked queries at once: ``path_masks`` is (Q, P) 0/1;
     returns host int32 (depth, uniq) of shape (Q, N), routed by
     :func:`batch_route`. The serving shape: one resident graph, a
-    stream of subset queries. Spans as :func:`masked_seg_depth`'s, under
-    ``pollen.depth.batch``."""
+    stream of subset queries. The answers' host memory as
+    :func:`masked_seg_depth`'s: page-locked from a CUDA graph, recycled
+    once the caller drops them. Spans as :func:`masked_seg_depth`'s,
+    under ``pollen.depth.batch``."""
     with profiling.span("pollen.depth.batch"):
         with profiling.span("pollen.depth.mask"):
             path_masks = _as_mask(dg, path_masks)

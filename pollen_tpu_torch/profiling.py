@@ -18,7 +18,9 @@ spans (``spans()``) keep their name, their start and end
 (``time.perf_counter_ns``), their parent and the call they belong to (a
 root span opens a call; its descendants share its id), the newest
 ``SPAN_BUFFER`` of them. ``count(name, n)`` adds to a process-wide
-counter, always on (``counters()``). ``reset()`` clears both.
+counter, always on (``counters()``, which once CUDA is initialised also
+reports ``host.pinned_blocks_created``: the page-locked blocks torch's
+caching host allocator made). ``reset()`` clears both.
 """
 
 from __future__ import annotations
@@ -77,6 +79,8 @@ _local = threading.local()
 _lock = threading.Lock()
 _recording = 0
 _NULL = contextlib.nullcontext()
+# The host allocator's blocks made before the last reset().
+_pinned_base = 0
 
 
 class _Open:
@@ -149,17 +153,34 @@ def spans() -> list:
         return list(_spans)
 
 
+def _pinned_blocks() -> Optional[int]:
+    """The page-locked blocks torch's caching host allocator has made in
+    this process (``num_host_alloc``), read only once CUDA is
+    initialised; else None."""
+    if not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.host_memory_stats().get("num_host_alloc")
+
+
 def counters() -> dict:
-    """A snapshot of the counters."""
+    """A snapshot of the counters, with ``host.pinned_blocks_created``
+    (the host allocator's new blocks since the last reset) once CUDA is
+    initialised."""
     with _lock:
-        return dict(_counters)
+        out = dict(_counters)
+    made = _pinned_blocks()
+    if made is not None:
+        out["host.pinned_blocks_created"] = made - _pinned_base
+    return out
 
 
 def reset() -> None:
     """Clear the recorded spans and the counters."""
+    global _pinned_base
     with _lock:
         _spans.clear()
         _counters.clear()
+        _pinned_base = _pinned_blocks() or 0
 
 
 @contextlib.contextmanager
