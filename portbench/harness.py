@@ -1,14 +1,17 @@
 """One run of one cell.
 
-1. Set-up: the arena and the mask pool drawn on the device from the
-   seed (``generate``), the program's ingest (``build_graph`` with its
-   defaults), and warm-up calls of the cell's own entry and shapes on
-   masks the window never sends.
+1. Set-up: the arena, drawn by the configuration's shape, and the
+   request streams, drawn by the traffic's subset kind, on the device
+   from the seed (``registry.shape``, ``registry.subsets``); the path
+   count is the arena's. Then the program's ingest (``build_graph``
+   with its defaults), and warm-up calls of the cell's own entry and
+   shapes on masks the window never sends.
 2. The window: a closed loop with one client for ``seconds``. Each call
-   sends the next request's masks (numpy bool, as library users pass
-   them) to the public entry and holds the host arrays it returns; its
-   latency runs from the call to the arrays in hand. A seeded sample of
-   the answers is held aside (``Sample``).
+   builds the next request's masks (numpy bool, as library users pass
+   them; the time spent building them is the stage ``requests_s``),
+   sends them to the public entry and holds the host arrays it returns;
+   its latency runs from the call to the arrays in hand. A seeded
+   sample of the answers is held aside (``Sample``).
 3. With ``trace``: the first ``trace_calls`` requests again, each as the
    public call and as the route's device part (host clock, ending in a
    synchronise), then the same public calls under ``torch.profiler``.
@@ -121,9 +124,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _request(stream: generate.MaskStream, call: int, q: int, entry: str):
-    """Call ``call``'s masks: one (P,) mask for the single entry, else
-    (q, P); requests are numbered mask by mask."""
+def _request(stream, call: int, q: int, entry: str):
+    """Call ``call``'s masks from the subset kind's ``stream``: one (P,)
+    mask for the single entry, else (q, P); requests are numbered mask
+    by mask."""
     if entry == "single":
         return stream.mask(call)
     return stream.masks(call * q, q)
@@ -137,12 +141,11 @@ def setup(run: Run):
     """The arena, the ingest and the warm-up; returns (arena, graph,
     the window's mask stream)."""
     cfg, tr, dev = run.config, run.traffic, run.device
-    p, q = cfg["paths"], run.masks_per_call
+    q = run.masks_per_call
     t0 = time.perf_counter()
-    g = generate.arena(cfg, run.seed, dev)
-    pool = generate.mask_pool(tr["pool"], p, run.seed, dev, stream=1)
-    warm = generate.MaskStream(
-        generate.mask_pool(tr["warmup_calls"] * q, p, run.seed, dev, stream=2), p)
+    g, groups = registry.shape(cfg["shape"]).draw(cfg, run.seed, dev)
+    stream, warm = registry.subsets(tr["subsets"]).streams(
+        tr, len(g.path_steps), groups, run.seed, dev)
     _sync(dev)
     run.stages["inputs_s"] = time.perf_counter() - t0
     if dev.type == "cuda":
@@ -163,21 +166,25 @@ def setup(run: Run):
             route_fn(dg)[1](dg, masks)
     _sync(dev)
     run.stages["warmup_s"] = time.perf_counter() - t0
-    return g, dg, generate.MaskStream(pool, p)
+    return g, dg, stream
 
 
 def window(run: Run, entry, dg, stream, sample: Sample) -> None:
     """The measured closed loop; a call that raises counts its masks as
-    failed (the first traceback goes to standard error)."""
+    failed (the first traceback goes to standard error). The host time
+    spent building requests, before each call's clock starts, adds up
+    to the stage ``requests_s``."""
     q = run.masks_per_call
     host_before = host.reading()
+    requests_s = 0.0
     t0 = time.perf_counter()
     deadline = t0 + run.seconds
     c = 0
-    while time.perf_counter() < deadline:
+    while (r := time.perf_counter()) < deadline:
         masks = _request(stream, c, q, run.entry)
         run.attempted += q
         a = time.perf_counter()
+        requests_s += a - r
         try:
             out = entry(dg, masks)
         except Exception:  # a failed call is counted, and the loop goes on
@@ -192,6 +199,7 @@ def window(run: Run, entry, dg, stream, sample: Sample) -> None:
             sample.offer(c, out)
         c += 1
     run.window_s = time.perf_counter() - t0
+    run.stages["requests_s"] = requests_s
     run.calls = c
     run.host = host.after(host_before, c)
 

@@ -27,11 +27,9 @@ def pytest_configure(config):
 def tiny_config(name: str) -> dict:
     from portbench import registry
 
-    from portbench import generate
-
     cfg = registry.config(name)
     cfg.update(TINY[name])
-    cfg["segments"], cfg["steps"] = generate.sizes(cfg)
+    cfg["segments"], cfg["steps"] = registry.shape(cfg["shape"]).sizes(cfg)
     return cfg
 
 

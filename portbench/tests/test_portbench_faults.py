@@ -77,6 +77,14 @@ def test_sound_run_is_correct(cell):
     assert set(out["metrics"]) == {m["name"] for m in registry.metrics(cell, "end_to_end")}
 
 
+@pytest.mark.parametrize("cell", CELLS)
+def test_request_time_is_recorded(cell):
+    """The window's host time building requests, a stage, not a metric."""
+    run, out = _run(cell)
+    assert 0 < run.stages["requests_s"] < run.window_s
+    assert "requests_s" not in out["metrics"]
+
+
 @pytest.mark.parametrize("fault", [stale, half, altered, raising])
 @pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_not_correct(cell, fault):

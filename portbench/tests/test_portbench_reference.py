@@ -8,17 +8,18 @@ import pytest
 from conftest import tiny_config
 from pollen_tpu_torch.device import build_graph
 from pollen_tpu_torch.ops import depth as depth_op
-from portbench import generate, reference
+from portbench import reference, registry
 
 ROUTES = ["ell", "cross", "scan", "xla", "runs"]
 
 
 @pytest.fixture(scope="module")
 def graph():
-    g = generate.arena(tiny_config("hprc_chr8"), 11, "cpu")
+    g, _ = registry.shape("bubble_chain").draw(tiny_config("hprc_chr8"), 11, "cpu")
     ref = reference.Reference(g.steps, g.path_steps, g.num_segments)
-    masks = generate.MaskStream(
-        generate.mask_pool(6, g.num_paths, 11, "cpu"), g.num_paths).masks(0, 6)
+    uniform = registry.subsets("uniform")
+    masks = uniform.MaskStream(
+        uniform.mask_pool(6, g.num_paths, 11, "cpu"), g.num_paths).masks(0, 6)
     masks[0] = True  # every path
     masks[1] = False  # none
     return g, ref, masks
@@ -83,11 +84,12 @@ def test_control_fails(name):
     limit of 0 differences refuses it; the reference agrees with itself
     (a run's reading)."""
     cfg = tiny_config(name)
+    uniform = registry.subsets("uniform")
     for seed in (1, 2, 3):
-        g = generate.arena(cfg, seed, "cpu")
+        g, _ = registry.shape(cfg["shape"]).draw(cfg, seed, "cpu")
         ref = reference.Reference(g.steps, g.path_steps, g.num_segments)
-        masks = generate.MaskStream(
-            generate.mask_pool(4, g.num_paths, seed, "cpu"), g.num_paths).masks(0, 4)
+        masks = uniform.MaskStream(
+            uniform.mask_pool(4, g.num_paths, seed, "cpu"), g.num_paths).masks(0, 4)
         for m in masks:
             want = ref.answer(m)
             ctl = ref.control_answer(m)

@@ -2,6 +2,7 @@
 own that the harness finds by the name in BENCHMARK.json, and every
 such file is named there."""
 
+import ast
 import json
 import re
 
@@ -35,6 +36,39 @@ def test_every_file_is_named():
     assert names["traffic"] == {w["traffic"] for w in BENCH["workloads"]}
     readers = {p.name[:-3] for p in (registry.HERE / "metrics").glob("*.py")}
     assert readers == {m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]}
+
+
+def test_every_shape_and_subset_kind_is_found():
+    for c in BENCH["configs"]:
+        name = registry.config(c["name"])["shape"]
+        assert (registry.HERE / "shapes" / f"{name}.py").is_file()
+        shape = registry.shape(name)
+        assert callable(shape.draw) and callable(shape.sizes)
+    for w in BENCH["workloads"]:
+        name = registry.traffic(w["traffic"])["subsets"]
+        assert (registry.HERE / "subsets" / f"{name}.py").is_file()
+        assert callable(registry.subsets(name).streams)
+
+
+def test_every_shape_and_subset_file_is_named():
+    shapes = {p.stem for p in (registry.HERE / "shapes").glob("*.py")}
+    assert shapes == {registry.config(c["name"])["shape"] for c in BENCH["configs"]}
+    kinds = {p.stem for p in (registry.HERE / "subsets").glob("*.py")}
+    assert kinds == {registry.traffic(w["traffic"])["subsets"] for w in BENCH["workloads"]}
+
+
+def test_no_code_names_a_shape_or_kind():
+    """Only the registry's lookup by the files' keys reaches a shape or
+    a subset kind: no source outside the tests holds one's name as a
+    string, so none branches on it."""
+    names = ({p.stem for p in (registry.HERE / "shapes").glob("*.py")}
+             | {p.stem for p in (registry.HERE / "subsets").glob("*.py")})
+    for path in registry.HERE.rglob("*.py"):
+        if "tests" in path.relative_to(registry.HERE).parts:
+            continue
+        strings = {n.value for n in ast.walk(ast.parse(path.read_text()))
+                   if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+        assert not strings & names, path
 
 
 def test_names_and_contract_shape():
