@@ -121,14 +121,23 @@ def seg_depth_with_uniq_runs(
     return depth, uniq
 
 
+def _count_scan(elements: int) -> None:
+    """One pass of a scan kernel (K6 or K8, or its plain version) over
+    ``elements`` padded steps or padded runs: counters
+    ``depth.scan_passes`` and ``depth.scan_elements``."""
+    profiling.count("depth.scan_passes")
+    profiling.count("depth.scan_elements", elements)
+
+
 def seg_depth_with_uniq_fused(
     dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked (depth, uniq) on the "scan" route: the segment scan (K6)
     over the sorted steps, then the boundary stage (K7) on both cumsums,
-    int32 on the graph's device."""
+    int32 on the graph's device. Counts the pass (:func:`_count_scan`)."""
     m = _as_mask(dg, path_mask)[: dg.num_paths]
     args = (dg.step_path_sorted, dg.run_start, m)
+    _count_scan(dg.padded_steps)
     if plain:
         csums = _ss.masked_depth_cumsums_plain(*args)
         return _gb.gather_boundary_diff_plain(csums, dg.seg_bounds)
@@ -142,9 +151,10 @@ def seg_depth_with_uniq_runs_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked (depth, uniq) on the "runs" route: the run scan (K8) over
     the run index, then the boundary stage (K7) on both cumsums, int32
-    on the graph's device."""
+    on the graph's device. Counts the pass (:func:`_count_scan`)."""
     m = _as_mask(dg, path_mask)[: dg.num_paths]
     args = (dg.run_path, dg.run_count, m)
+    _count_scan(dg.run_path.shape[0])
     if plain:
         csums = _rs.masked_run_cumsums_plain(*args)
         return _gb.gather_boundary_diff_plain(csums, dg.run_seg_bounds)

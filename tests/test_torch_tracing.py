@@ -32,7 +32,8 @@ ENTRIES = {"single": depth.masked_seg_depth, "batch": depth.seg_depth_with_uniq_
 ROOT = {"single": "pollen.depth.single", "batch": "pollen.depth.batch"}
 INGEST_STAGES = ("sort", "runs", "cross", "ell", "tables", "to_device")
 # The cells of each entry, and the metrics that read the spans and counters.
-CELLS = {"single": "hprc_chr8.single", "batch": "hprc_chr8.batch32"}
+CELLS = {"single": ["hprc_chr8.single", "chr8_ont_reads.single"],
+         "batch": ["hprc_chr8.batch32", "chr8_ont_reads.batch32"]}
 SPAN_METRICS = ("entry_ms", "launch_ms", "to_host_ms", "to_host_gbps")
 INGEST_METRICS = tuple(f"ingest_{s}_s" for s in ("sort", "runs", "cross", "ell", "to_device"))
 
@@ -353,7 +354,7 @@ def test_metric_readers(tiny, metric):
         return
     entry = metric.rsplit(".", 1)[1]
     other = "batch" if entry == "single" else "single"
-    assert named[metric]["workloads"] == [CELLS[entry]]
+    assert named[metric]["workloads"] == CELLS[entry]
     assert read(_run(entry)) > 0
     assert read(_run(other)) is None
     assert read(_run(entry, traced=False)) is None
