@@ -123,6 +123,11 @@ class TorchGraph:
     ell_pack16: int = 0
     bnd_w_rows: int = 0
     bnd2_w_rows: int = 0
+    # The single query's captured device parts (ops.depth._route_part),
+    # filled on a card and freed with the graph; a copy made with
+    # dataclasses.replace starts with none.
+    route_parts: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def num_steps(self) -> int:

@@ -9,11 +9,15 @@ matrix ("cross"), and the scan family for graphs past both budgets
 ("runs" over the run index, "scan" and "xla" over the sorted steps).
 On a CPU graph each wrapper runs its plain version. ``plain=True``
 runs a route's plain PyTorch version on any device (the reference's
-``pallas=False``), which is what the kernels are held to.
+``pallas=False``), which is what the kernels are held to. On a card the
+single query's device parts on the cross, scan and runs routes replay a
+CUDA graph captured once per graph, route and mask shape
+(:func:`_route_part`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -484,18 +488,141 @@ def _cross_beats_scan(dg: TorchGraph) -> bool:
     return _best_masked_impl(dg) == "cross"
 
 
+class _RoutePart:
+    """One key's device part: after its first (eager) call, the captured
+    CUDA graph with its static mask, its outputs, the ``depth.*`` counts
+    a replay adds and the stream of its last replay; or ``failed`` once
+    a capture raised."""
+
+    __slots__ = ("graph", "mask", "outs", "added", "stream", "failed")
+
+    def __init__(self):
+        self.graph = None
+        self.failed = False
+
+
+def _depth_counts() -> dict:
+    return {k: v for k, v in profiling.counters().items() if k.startswith("depth.")}
+
+
+def _warm(dg: TorchGraph, fn, mask: torch.Tensor):
+    """A key's first call: eager, on a side stream (as capture wants its
+    kernels' first calls), joined back to the current stream."""
+    cur = torch.cuda.current_stream(mask.device)
+    side = torch.cuda.Stream(mask.device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        outs = fn(dg, mask, plain=False)
+    cur.wait_stream(side)
+    for t in outs:
+        t.record_stream(cur)
+    return outs
+
+
+def _capture(part: _RoutePart, dg: TorchGraph, fn, mask: torch.Tensor):
+    """A key's second call: capture its device part into a CUDA graph
+    (the outputs and every buffer in between in the graph's private
+    pool; a scan's memset a node), then replay it for this call. The
+    ``depth.*`` counts the capture adds (a scan's pass and elements) are
+    this call's, and each replay adds them again; the kernel wrappers'
+    launch counts move only here, where the wrappers run. If the capture
+    raises, its ``depth.*`` counts are taken back and the key runs
+    eagerly from then on (``depth.route_uncaptured`` a call)."""
+    before = _depth_counts()
+    static = mask.clone()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            outs = fn(dg, static, plain=False)
+        failed = False
+    except RuntimeError:
+        failed = True
+    added = {k: v - before.get(k, 0) for k, v in _depth_counts().items()
+             if v != before.get(k, 0)}
+    if failed:
+        for k, n in added.items():
+            profiling.count(k, -n)
+        part.failed = True
+        profiling.count("depth.route_uncaptured")
+        return fn(dg, mask, plain=False)
+    part.graph, part.mask, part.outs, part.added = graph, static, outs, added
+    part.stream = torch.cuda.current_stream(mask.device)
+    profiling.count("depth.route_graphs")
+    graph.replay()
+    return outs
+
+
+def _replay(part: _RoutePart, mask: torch.Tensor):
+    cur = torch.cuda.current_stream(mask.device)
+    if cur != part.stream:
+        # The last replay may still read the static mask.
+        cur.wait_stream(part.stream)
+        part.stream = cur
+    part.mask.copy_(mask)
+    part.graph.replay()
+    for k, n in part.added.items():
+        profiling.count(k, n)
+    profiling.count("depth.route_replays")
+    return part.outs
+
+
+def _route_part(dg: TorchGraph, fn, mask: torch.Tensor):
+    """``fn``'s device part on a CUDA graph through the graph's captured
+    parts (``dg.route_parts``, a key a route fn, mask shape and dtype):
+    the first call of a key eager, the second captured and replayed,
+    later ones a copy of the mask into the static input and one replay.
+    Counts ``depth.route_parts`` a call, ``depth.route_graphs`` a
+    capture and ``depth.route_replays`` a later call's replay."""
+    profiling.count("depth.route_parts")
+    key = (fn, tuple(mask.shape), mask.dtype)
+    part = dg.route_parts.get(key)
+    if part is None:
+        dg.route_parts[key] = _RoutePart()
+        return _warm(dg, fn, mask)
+    if part.failed:
+        profiling.count("depth.route_uncaptured")
+        return fn(dg, mask, plain=False)
+    if part.graph is None:
+        return _capture(part, dg, fn, mask)
+    return _replay(part, mask)
+
+
+def _replayed(fn):
+    """``fn`` (a single query's device part that returns device answers)
+    through the graph's captured parts (:func:`_route_part`) where the
+    graph is on a card, ``plain`` is false and no stream is capturing
+    (an outer capture records the eager call); else ``fn`` itself.
+    Replayed answers are the graph's own outputs: valid until the next
+    call on the same graph and key."""
+
+    @functools.wraps(fn)
+    def part(dg: TorchGraph, path_mask, plain: bool = False):
+        mask = _as_mask(dg, path_mask)
+        if plain or not mask.is_cuda or torch.cuda.is_current_stream_capturing():
+            return fn(dg, mask, plain=plain)
+        return _route_part(dg, fn, mask)
+
+    return part
+
+
+_MASKED_PARTS = {
+    "ell": seg_depth_with_uniq_ell_parts,
+    "cross": _replayed(seg_depth_with_uniq_cross),
+    "runs": _replayed(seg_depth_with_uniq_runs_fused),
+    # "xla" too takes the scan: the reference's accelerator route.
+    "scan": _replayed(seg_depth_with_uniq_fused),
+}
+
+
 def masked_route_fn(dg: TorchGraph) -> Tuple[str, Callable]:
     """The single masked query's route and its device part, called as
     ``fn(dg, path_mask, plain=False)``: int32 (depth, uniq) on the
-    graph's device, or the ELL route's per-class parts."""
+    graph's device, or the ELL route's per-class parts. On a card the
+    cross, scan and runs parts replay a CUDA graph captured once per
+    graph, route, mask shape and dtype (:func:`_replayed`): their
+    tensors are valid until the next call on the same graph and key."""
     route = _best_masked_impl(dg)
-    # "xla" too takes the scan: the reference's accelerator route.
-    fns = {
-        "ell": seg_depth_with_uniq_ell_parts,
-        "cross": seg_depth_with_uniq_cross,
-        "runs": seg_depth_with_uniq_runs_fused,
-    }
-    return route, fns.get(route, seg_depth_with_uniq_fused)
+    return route, _MASKED_PARTS.get(route, _MASKED_PARTS["scan"])
 
 
 def masked_seg_depth(

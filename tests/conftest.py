@@ -31,6 +31,11 @@ GOLDEN_DIR = REPO / "tests" / "golden"
 FIXTURE_GRAPHS = sorted(p.name for p in GRAPH_DIR.glob("*.gfa"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (skips inside the test without one)")
+
+
 @pytest.fixture(params=FIXTURE_GRAPHS)
 def graph_path(request) -> pathlib.Path:
     return GRAPH_DIR / request.param
