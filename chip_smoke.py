@@ -529,7 +529,7 @@ def phase_kernels(errs: Errors):
     import torch
 
     from pollen_tpu_torch import parse_gfa_file
-    from pollen_tpu_torch.device import _nibble_pack, build_graph
+    from pollen_tpu_torch.device import _nibble_pack, build_graph, ell_tiers
     from pollen_tpu_torch.kernels import crossmat as cm
     from pollen_tpu_torch.kernels import ellscan as ell
 
@@ -583,15 +583,7 @@ def phase_kernels(errs: Errors):
                 what + " int8",
             )
             for dg in (dg16, dg32):
-                tiers = [
-                    (t, k)
-                    for t, k in (
-                        (dg.cross_ell, dg.ell_k),
-                        (dg.cross_ell2, dg.ell_k2),
-                        (dg.cross_ell3, dg.ell_k3),
-                    )
-                    if t.numel()
-                ]
+                tiers = ell_tiers(dg)
                 p16 = bool(dg.ell_pack16)
                 for t, k in tiers:
                     errs.compare(
@@ -636,15 +628,7 @@ def phase_kernels(errs: Errors):
                     f"{path.name} Q={q} nibble={nib}",
                 )
             for dg in (dg16, dg32):
-                tiers = [
-                    (t, k)
-                    for t, k in (
-                        (dg.cross_ell, dg.ell_k),
-                        (dg.cross_ell2, dg.ell_k2),
-                        (dg.cross_ell3, dg.ell_k3),
-                    )
-                    if t.numel()
-                ]
+                tiers = ell_tiers(dg)
                 p16 = bool(dg.ell_pack16)
                 heavy = dg.ell_heavy if dg.ell_heavy.numel() else a4
                 for nt in (1, 2, 3):

@@ -100,8 +100,6 @@
 //     ~40 KB for its row list and group sums), so more blocks fit an
 //     SM; no packing launch and no scratch. Tier outputs need
 //     16-byte-aligned slots and outputs (the wrapper refuses others).
-//     Its tier-only launch of K1's kernel instead is `kernel_ab`'s
-//     k3_splitn build (PERF.md).
 
 #include "cross.cuh"
 

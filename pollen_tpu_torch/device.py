@@ -10,6 +10,12 @@ environment knobs (POLLEN_CROSS_BUDGET_MB, POLLEN_ELL_PACK16,
 POLLEN_ELL_OBJECTIVE, POLLEN_ELL_SUB); everything is built in numpy
 and moved to the device once, at the end.
 
+The readers of that layout sit beside it: ``ell_tiers`` (the tiers
+present), ``residual_sums`` and ``add_residual`` (a clip-residual
+sidecar's masked sums and their scatter into an answer), ``fold_mid``
+and ``compose_ell`` (the ELL classes in ``ell_order``, un-permuted).
+Every query, single-device or sharded, reads the index through them.
+
 ``TorchGraph`` keeps the fields the depth queries, the router and the
 other graph commands read (the degree index ``link_seg_bounds`` too),
 under the reference's names. ``from_host_arrays`` turns the fields of a
@@ -549,6 +555,100 @@ def _plan_rows(bounds: np.ndarray, s_pad: int, eligible: bool) -> int:
         return 0
     plan = plan_boundary(bounds, s_pad)
     return plan.w_rows if len(plan.over_tiles) <= 64 else 0
+
+
+# ---------------------------------------------------------------------------
+# Readers of the layout build_graph writes: the ELL tiers, the clip
+# residual sidecars and the class order. Every query reads it here.
+# ---------------------------------------------------------------------------
+
+
+def ell_tiers(dg: TorchGraph) -> list:
+    """The resident tall ELL tiers as ``[(tall, stored words), ...]`` in
+    tier order: tier 1, then tiers 2 and 3 where present (the planner
+    fills tiers in order, so a third tier comes only with a second)."""
+    tiers = [(dg.cross_ell, dg.ell_k)]
+    for tall, k in ((dg.cross_ell2, dg.ell_k2), (dg.cross_ell3, dg.ell_k3)):
+        if tall.numel():
+            tiers.append((tall, k))
+    return tiers
+
+
+def residual_sums(res: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Column sums of an int32[P_pad, K] clip-residual sidecar
+    (``cross_res``, ``ell_heavy_res``) under one 0/1 mask (P_pad,) ->
+    int32 (K,), or under (Q, P_pad) masks -> int32 (Q, K). Exact: one
+    mask in int32; many as a float64 matmul, whose products and sums of
+    integers stay far below 2^53 (torch.matmul has no int32 CUDA form)."""
+    if masks.dim() == 1:
+        return (res * masks[:, None]).sum(dim=0, dtype=torch.int32)
+    return (masks.to(torch.float64) @ res.to(torch.float64)).to(torch.int32)
+
+
+def add_residual(
+    out: torch.Tensor, fix: torch.Tensor, cols: torch.Tensor, lo: int = 0
+) -> torch.Tensor:
+    """``out`` (columns on its last axis, a leading Q axis or none) plus
+    the residual sums ``fix`` (:func:`residual_sums`) at the sidecar's
+    column ids ``cols`` (``cross_res_seg``, ``ell_heavy_res_col``), less
+    ``lo``, a rank's first column where ``out`` is that rank's slice: a
+    new tensor. A column outside ``out`` adds nothing: the sentinel
+    padding (``RES_SENTINEL``) and other ranks' columns are masked out
+    explicitly, since torch's scatter has no drop mode and a negative
+    index would wrap."""
+    local = cols - lo if lo else cols
+    own = (local >= 0) & (local < out.shape[-1])
+    idx = torch.where(own, local, 0).long()
+    return out.index_add(out.dim() - 1, idx, fix * own)
+
+
+def _cat(pieces: list):
+    """Concatenate on the last axis: host numpy arrays or tensors."""
+    if isinstance(pieces[0], torch.Tensor):
+        return torch.cat(pieces, dim=-1)
+    return np.concatenate(pieces, axis=-1)
+
+
+def fold_mid(dg: TorchGraph, tier_parts: list) -> tuple:
+    """Tiers 2 and 3's (depth, uniq) pairs (columns on the last axis) as
+    the one mid class pair: tier 2's first ``ell_num_mid`` columns, then
+    tier 3's first ``ell_num_mid2``; a lone tier's pair as it is; (None,
+    None) with neither."""
+    if len(tier_parts) < 2:
+        return tuple(tier_parts[0]) if tier_parts else (None, None)
+    (d2, u2), (d3, u3) = tier_parts
+    nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
+    return (_cat([d2[..., :nm], d3[..., :nm2]]),
+            _cat([u2[..., :nm], u3[..., :nm2]]))
+
+
+def compose_ell(dg: TorchGraph, parts, order=None) -> tuple:
+    """The tiered ELL index's class parts ``(d1, u1, d2, u2, dh, uh)``
+    (tier 1, the mid class of :func:`fold_mid`, heavy; None where
+    absent; columns on the last axis, a leading Q axis or none) as one
+    (depth, uniq) pair over the N segments: each class cut to its
+    ``ell_num_*`` columns, in ``ell_order``, then the empty class's
+    zeros; un-permuted into natural segment order by ``order``, the
+    host copy of ``ell_order``, where given. Host numpy arrays or
+    tensors of one device, in the parts' dtype."""
+    counts = (dg.ell_num_light, dg.ell_num_mid + dg.ell_num_mid2,
+              dg.ell_num_heavy)
+    if order is not None:
+        inv = np.empty(dg.num_segments, np.int64)
+        inv[order] = np.arange(dg.num_segments)
+    out = []
+    for xs in (parts[0::2], parts[1::2]):
+        present = [(x, c) for x, c in zip(xs, counts) if x is not None]
+        pieces = [x[..., :c] for x, c in present]
+        first = pieces[0]
+        shape = first.shape[:-1] + (dg.num_segments - sum(c for _, c in present),)
+        if isinstance(first, torch.Tensor):
+            pieces.append(first.new_zeros(shape))
+        else:
+            pieces.append(np.zeros(shape, first.dtype))
+        whole = _cat(pieces)
+        out.append(whole if order is None else whole[..., inv])
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

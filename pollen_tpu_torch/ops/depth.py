@@ -28,9 +28,14 @@ from ..flatgfa import GraphArrays
 
 from ..device import (
     TorchGraph,
+    add_residual,
     bounded_segment_sum,
+    compose_ell,
+    ell_tiers,
     first_in_group_mask,
+    fold_mid,
     op_tensor,
+    residual_sums,
 )
 from ..kernels import crossmat as _cm
 from ..kernels import ellscan as _ell
@@ -167,18 +172,6 @@ def seg_depth_with_uniq_runs_fused(
     )
 
 
-def _residual(res: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
-    """Masked column sums of an int32 residual sidecar, exact int32."""
-    return (res * mp[:, None]).sum(dim=0, dtype=torch.int32)
-
-
-def _residual_batch(res: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
-    """:func:`_residual` for (Q, P_pad) masks -> int32 (Q, K). Exact:
-    float64 products and sums of integers far below 2^53 (torch.matmul
-    has no int32 CUDA form)."""
-    return (mp.to(torch.float64) @ res.to(torch.float64)).to(torch.int32)
-
-
 def seg_depth_with_uniq_cross(
     dg: TorchGraph, path_mask: torch.Tensor, plain: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,12 +182,8 @@ def seg_depth_with_uniq_cross(
     fn = _cm.masked_cross_depth_plain if plain else _cm.masked_cross_depth
     depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
     if dg.cross_res_seg.numel():
-        fix = _residual(dg.cross_res, m)
-        # Sentinel padding columns carry an out-of-range segment id:
-        # route them to column 0 with a zero contribution.
-        valid = dg.cross_res_seg < depth.shape[0]
-        idx = torch.where(valid, dg.cross_res_seg, 0).long()
-        depth = depth.index_add(0, idx, fix * valid.to(torch.int32))
+        fix = residual_sums(dg.cross_res, m)
+        depth = add_residual(depth, fix, dg.cross_res_seg)
     return depth[: dg.num_segments], uniq[: dg.num_segments]
 
 
@@ -208,30 +197,20 @@ def seg_depth_with_uniq_ell_parts(
     residual is applied."""
     _ell.check_ell_sub(dg.ell_sub)
     m = _as_mask(dg, path_mask).to(torch.int32)[: dg.num_paths]
-    has_mid = dg.cross_ell2.numel() > 0
-    has_mid2 = dg.cross_ell3.numel() > 0
     has_heavy = dg.ell_heavy.numel() > 0
     # The reference fuses only when the heavy block is SEG_BLOCK padded
     # (its rotated output tiles); the port keeps the same split so that
     # both kernels of the unfused form stay on the path for small graphs.
     fusable = has_heavy and dg.ell_heavy.shape[1] % _cm.SEG_BLOCK == 0
     pack16 = bool(dg.ell_pack16)
-    heavy_p_pad = dg.ell_heavy.shape[0] * 2
+    mp = _cm.pad_mask(m, dg.ell_heavy.shape[0] * 2) if has_heavy else None
 
     def tier(tall, k):
         if plain:
             return _ell.masked_ell_depth_tall_plain(tall, m, k, pack16)
         return _ell.masked_ell_depth_tall(tall, m, k, pack16=pack16)
 
-    def cat_mid(d2, u2, d3, u3):
-        nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
-        return torch.cat([d2[:nm], d3[:nm2]]), torch.cat([u2[:nm], u3[:nm2]])
-
-    tiers = [(dg.cross_ell, dg.ell_k)]
-    if has_mid:
-        tiers.append((dg.cross_ell2, dg.ell_k2))
-    if has_mid2:
-        tiers.append((dg.cross_ell3, dg.ell_k3))
+    tiers = ell_tiers(dg)
     dh = uh = None
     if fusable and not plain:
         outs = _ell.masked_ell_splitn_depth(
@@ -243,43 +222,13 @@ def seg_depth_with_uniq_ell_parts(
     else:
         parts = [tier(t, k) for t, k in tiers]
         if has_heavy:
-            mp = _cm.pad_mask(m, heavy_p_pad)
             fn = _cm.masked_cross_depth_plain if plain else _cm.masked_cross_depth
             dh, uh = fn(dg.ell_heavy, mp, nibble=True)
-    d1, u1 = parts[0]
-    d2 = u2 = None
-    if has_mid:
-        d2, u2 = parts[1]
-    if has_mid2:
-        d3, u3 = parts[-1]
-        d2, u2 = cat_mid(d2, u2, d3, u3) if has_mid else (d3, u3)
     if has_heavy and dg.ell_heavy_res_col.numel():
-        # Overflow columns occupy the heavy block's prefix (ingest).
-        # dh is this query's own fresh output, so the add is in place.
-        fix = _residual(dg.ell_heavy_res, _cm.pad_mask(m, heavy_p_pad))
-        dh[: dg.ell_heavy_res.shape[1]] += fix
-    return d1, u1, d2, u2, dh, uh
-
-
-def _ell_pieces(dg: TorchGraph, parts):
-    """The per-class parts ``(d1, u1, d2, u2, dh, uh)`` (columns on the
-    last axis) cut to their classes in ``ell_order`` ([tier 1, tiers
-    2+3, heavy]): ``(depth pieces, uniq pieces, empty columns)``, or
-    None where there is no order and no second part (the first tier is
-    then the whole answer)."""
-    d1, u1, d2, u2, dh, uh = parts
-    if d2 is None and dh is None and not dg.ell_order.shape[0]:
-        return None
-    nl, nh = dg.ell_num_light, dg.ell_num_heavy
-    nm = dg.ell_num_mid + dg.ell_num_mid2  # the mid part folds tiers 2+3
-    dparts, uparts = [d1[..., :nl]], [u1[..., :nl]]
-    if d2 is not None:
-        dparts.append(d2[..., :nm])
-        uparts.append(u2[..., :nm])
-    if dh is not None:
-        dparts.append(dh[..., :nh])
-        uparts.append(uh[..., :nh])
-    return dparts, uparts, dg.num_segments - nl - nm - nh
+        dh = add_residual(
+            dh, residual_sums(dg.ell_heavy_res, mp), dg.ell_heavy_res_col
+        )
+    return (*parts[0], *fold_mid(dg, parts[1:]), dh, uh)
 
 
 def seg_depth_with_uniq_ell_permuted(
@@ -290,14 +239,7 @@ def seg_depth_with_uniq_ell_permuted(
     device: the parts query plus one concatenate (the empty tail is a
     zero block), with no host round trip and no un-permute. Prefer the
     parts form on hot paths."""
-    parts = seg_depth_with_uniq_ell_parts(dg, path_mask, plain=plain)
-    pieces = _ell_pieces(dg, parts)
-    if pieces is None:
-        n = dg.num_segments
-        return parts[0][:n], parts[1][:n]
-    dparts, uparts, ne = pieces
-    zero = torch.zeros(ne, dtype=torch.int32, device=parts[0].device)
-    return torch.cat(dparts + [zero]), torch.cat(uparts + [zero])
+    return compose_ell(dg, seg_depth_with_uniq_ell_parts(dg, path_mask, plain=plain))
 
 
 def _compose_ell(dg: TorchGraph, parts) -> Tuple[np.ndarray, np.ndarray]:
@@ -307,22 +249,10 @@ def _compose_ell(dg: TorchGraph, parts) -> Tuple[np.ndarray, np.ndarray]:
     as the reference does (the span ``pollen.depth.compose``; the parts'
     and the order's copies are one ``pollen.depth.to_host`` in it)."""
     with profiling.span("pollen.depth.compose"):
-        n = dg.num_segments
         *parts, order = _to_host(
             *parts, dg.ell_order if dg.ell_order.shape[0] else None
         )
-        pieces = _ell_pieces(dg, parts)
-        if pieces is None:
-            return parts[0][:, :n], parts[1][:, :n]
-        dparts, uparts, ne = pieces
-        empty = np.zeros((parts[0].shape[0], ne), np.int32)
-        d = np.concatenate(dparts + [empty], axis=1)
-        u = np.concatenate(uparts + [empty], axis=1)
-        if order is not None:
-            inv = np.empty(n, np.int64)
-            inv[order] = np.arange(n)
-            d, u = d[:, inv], u[:, inv]
-        return d, u
+        return compose_ell(dg, parts, order)
 
 
 def seg_depth_with_uniq_ell(
@@ -347,10 +277,7 @@ def seg_depth_with_uniq_ell_batch_parts(
     residual is applied."""
     _ell.check_ell_sub(dg.ell_sub)
     m = _as_mask(dg, path_masks).to(torch.int32)[:, : dg.num_paths]
-    tiers = [(dg.cross_ell, dg.ell_k)]
-    for tall, k in ((dg.cross_ell2, dg.ell_k2), (dg.cross_ell3, dg.ell_k3)):
-        if tall.numel():
-            tiers.append((tall, k))
+    tiers = ell_tiers(dg)
     fn = (
         _ell.masked_ell_splitn_depth_batch_plain
         if plain
@@ -360,26 +287,13 @@ def seg_depth_with_uniq_ell_batch_parts(
         [t for t, _ in tiers], dg.ell_heavy, m, [k for _, k in tiers],
         pack16=bool(dg.ell_pack16),
     )
-    d1, u1 = tier_outs[0], tier_outs[1]
-    d2 = u2 = None
-    if dg.cross_ell2.numel():
-        d2, u2 = tier_outs[2], tier_outs[3]
-    if dg.cross_ell3.numel():
-        d3, u3 = tier_outs[-2], tier_outs[-1]
-        if d2 is None:
-            d2, u2 = d3, u3
-        else:
-            nm, nm2 = dg.ell_num_mid, dg.ell_num_mid2
-            d2 = torch.cat([d2[:, :nm], d3[:, :nm2]], dim=1)
-            u2 = torch.cat([u2[:, :nm], u3[:, :nm2]], dim=1)
+    parts = [tier_outs[i : i + 2] for i in range(0, len(tier_outs), 2)]
     if dh is not None and dg.ell_heavy_res_col.numel():
-        # Overflow columns occupy the heavy block's prefix (ingest);
-        # dh is this batch's own fresh output, so the add is in place.
         mp = _cm.pad_mask(m, dg.ell_heavy.shape[0] * 2)
-        dh[:, : dg.ell_heavy_res.shape[1]] += _residual_batch(
-            dg.ell_heavy_res, mp
+        dh = add_residual(
+            dh, residual_sums(dg.ell_heavy_res, mp), dg.ell_heavy_res_col
         )
-    return d1, u1, d2, u2, dh, uh
+    return (*parts[0], *fold_mid(dg, parts[1:]), dh, uh)
 
 
 # Largest batch per launch, as in the reference (its VMEM budget): it
@@ -419,12 +333,8 @@ def seg_depth_with_uniq_cross_batch(
     fn = _cm.batched_cross_depth_plain if plain else _cm.batched_cross_depth
     depth, uniq = fn(dg.cross_matrix, m, nibble=dg.cross_nibble)
     if dg.cross_res_seg.numel():
-        fix = _residual_batch(dg.cross_res, m)
-        # Sentinel padding columns carry an out-of-range segment id:
-        # route them to column 0 with a zero contribution.
-        valid = dg.cross_res_seg < depth.shape[1]
-        idx = torch.where(valid, dg.cross_res_seg, 0).long()
-        depth = depth.index_add(1, idx, fix * valid.to(torch.int32))
+        fix = residual_sums(dg.cross_res, m)
+        depth = add_residual(depth, fix, dg.cross_res_seg)
     return depth[:, : dg.num_segments], uniq[:, : dg.num_segments]
 
 
@@ -459,12 +369,8 @@ def _masked_impl_costs(dg: TorchGraph) -> dict:
     if dg.cross_ell.numel():
         a = _ell.c_slot_a(-(-max(dg.num_paths, 1) // 32))
         cost_ell = 0.0
-        for tall, k in (
-            (dg.cross_ell, dg.ell_k),
-            (dg.cross_ell2, dg.ell_k2),
-            (dg.cross_ell3, dg.ell_k3),
-        ):
-            if tall.numel() and k:
+        for tall, k in ell_tiers(dg):
+            if k:
                 size = tall.numel()
                 cost_ell += _ell.C_TIER_FIXED + a * size + _ell.C_COL_B * size / k
         if dg.ell_heavy.numel():

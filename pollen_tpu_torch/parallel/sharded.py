@@ -30,9 +30,9 @@ read sits between the all-gather and the kernel.
 The column-sharded indexes (crossing matrix, tiered ELL) run with no
 collective: each rank holds a contiguous copy of its 128-aligned column
 slice and runs the port's kernels on it (K2, K5, K9); the replicated
-clip residual is added for the rank's own columns only, with the
-columns of other ranks masked out explicitly (torch has no drop mode,
-and a negative index would wrap).
+clip residual is added for the rank's own columns only
+(``device.add_residual`` given the rank's first column), as the
+single-device routes add it.
 """
 
 from __future__ import annotations
@@ -45,7 +45,14 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..device import TorchGraph
+from ..device import (
+    TorchGraph,
+    add_residual,
+    compose_ell,
+    ell_tiers,
+    fold_mid,
+    residual_sums,
+)
 from ..kernels import crossmat as _cm
 from ..kernels import ellscan as _ell
 from ..kernels import segscan as _ss
@@ -344,19 +351,6 @@ def _pad_cols(a: torch.Tensor, n_dev: int, index: int) -> Tuple[torch.Tensor, in
     return out, width
 
 
-def _add_own_residual(
-    depth: torch.Tensor, fix: torch.Tensor, cols: torch.Tensor, lo: int
-) -> torch.Tensor:
-    """``depth`` (columns on the last axis) plus the residual ``fix`` of
-    the columns ``cols`` that fall in this rank's [lo, lo + width):
-    the others (and the sentinel padding) are masked out explicitly."""
-    width = depth.shape[-1]
-    local = cols - lo
-    own = (local >= 0) & (local < width)
-    idx = torch.where(own, local, torch.zeros_like(local)).long()
-    return depth.index_add(depth.dim() - 1, idx, fix * own)
-
-
 class ShardedCross(NamedTuple):
     """This rank's piece of the crossing matrix: its packed columns
     (segments), a contiguous copy; the residual sidecar replicated."""
@@ -399,8 +393,8 @@ def sharded_cross_depth_fn(mesh, nibble: bool = False):
     def query(cross, res, res_seg, mask):
         depth, uniq = _cm.masked_cross_depth(cross, mask, nibble=nibble)
         if res_seg.shape[0]:
-            fix = (res * mask.to(torch.int32)[:, None]).sum(dim=0, dtype=torch.int32)
-            depth = _add_own_residual(depth, fix, res_seg, index * cross.shape[1])
+            fix = residual_sums(res, mask.to(torch.int32))
+            depth = add_residual(depth, fix, res_seg, index * cross.shape[1])
         return depth, uniq
 
     return query
@@ -443,13 +437,8 @@ def shard_ell_inputs(dg: TorchGraph, mesh) -> Optional[ShardedEll]:
         f = _ell.unfold_ell_tall(tall, k)
         return _ell.unpair_ell16(f) if dg.ell_pack16 else f
 
-    e, lw = _pad_cols(_flat(dg.cross_ell, dg.ell_k), n_dev, index)
-    ell2, mw = None, 0
-    if dg.cross_ell2.numel():
-        ell2, mw = _pad_cols(_flat(dg.cross_ell2, dg.ell_k2), n_dev, index)
-    ell3, m2w = None, 0
-    if dg.cross_ell3.numel():
-        ell3, m2w = _pad_cols(_flat(dg.cross_ell3, dg.ell_k3), n_dev, index)
+    (e, lw), *mids = [_pad_cols(_flat(t, k), n_dev, index) for t, k in ell_tiers(dg)]
+    (ell2, mw), (ell3, m2w) = (mids + [(None, 0)] * 2)[:2]
     heavy, hw, rows = None, 0, 0
     if dg.ell_heavy.numel():
         heavy, hw = _pad_cols(dg.ell_heavy, n_dev, index)
@@ -516,8 +505,8 @@ def sharded_ell_depth_fn(
         mp = _cm.pad_mask(mask, h.shape[0] * 2)
         depth_h, uniq_h = _cm.masked_cross_depth(h, mp, nibble=True)
         if res_col.shape[0]:
-            fix = (res * mp[:, None]).sum(dim=0, dtype=torch.int32)
-            depth_h = _add_own_residual(depth_h, fix, res_col, index * h.shape[1])
+            fix = residual_sums(res, mp)
+            depth_h = add_residual(depth_h, fix, res_col, index * h.shape[1])
         return depth_h, uniq_h
 
     return _ell_query(has_heavy, has_mid, has_mid2, _ell.masked_ell_depth_tiers,
@@ -557,8 +546,8 @@ def sharded_ell_depth_batch_fn(
         mp = _cm.pad_mask(masks, h.shape[0] * 2)
         depth_h, uniq_h = _cm.batched_cross_depth(h, mp, nibble=True)
         if res_col.shape[0]:
-            fix = (mp[:, :, None] * res[None]).sum(dim=1, dtype=torch.int32)
-            depth_h = _add_own_residual(depth_h, fix, res_col, index * h.shape[1])
+            fix = residual_sums(res, mp)
+            depth_h = add_residual(depth_h, fix, res_col, index * h.shape[1])
         return depth_h, uniq_h
 
     def tiers(slots, masks):
@@ -580,33 +569,19 @@ def compose_ell_parts_natural(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Reassemble a sharded (gathered) or single-device tiered-ELL
     query's per-class part vectors into natural segment order on the
-    host: slice each present class to its true size, append the empty
-    class's zeros, and invert the ingest permutation ``ell_order``.
-    ``parts`` is the flat (d, u) interleaving the sharded query
-    returns: (d1, u1[, d2, u2][, d3, u3][, dh, uh])."""
-    n = dg.num_segments
-    counts = [dg.ell_num_light]
-    if has_mid:
-        counts.append(dg.ell_num_mid)
-    if has_mid2:
-        counts.append(dg.ell_num_mid2)
-    if has_heavy:
-        counts.append(dg.ell_num_heavy)
-    d_parts = [_host(parts[2 * i])[:c] for i, c in enumerate(counts)]
-    u_parts = [_host(parts[2 * i + 1])[:c] for i, c in enumerate(counts)]
-    ne = n - sum(counts)
-    d_parts.append(np.zeros(ne, np.int64))
-    u_parts.append(np.zeros(ne, np.int64))
-    d = np.concatenate(d_parts)
-    u = np.concatenate(u_parts)
-    if not dg.ell_order.shape[0]:
-        return d[:n], u[:n]
-    order = _host(dg.ell_order)
-    d_nat = np.empty(n, np.int64)
-    u_nat = np.empty(n, np.int64)
-    d_nat[order] = d
-    u_nat[order] = u
-    return d_nat, u_nat
+    host, int64: slice each present class to its true size, append the
+    empty class's zeros, and invert the ingest permutation ``ell_order``
+    (:func:`~pollen_tpu_torch.device.compose_ell`). ``parts`` is the
+    flat (d, u) interleaving the sharded query returns: (d1, u1[, d2,
+    u2][, d3, u3][, dh, uh])."""
+    pairs = [[_host(x) for x in parts[i : i + 2]] for i in range(0, len(parts), 2)]
+    n_mid = has_mid + has_mid2
+    heavy = pairs[1 + n_mid] if has_heavy else (None, None)
+    order = _host(dg.ell_order) if dg.ell_order.shape[0] else None
+    d, u = compose_ell(
+        dg, (*pairs[0], *fold_mid(dg, pairs[1 : 1 + n_mid]), *heavy), order
+    )
+    return d.astype(np.int64), u.astype(np.int64)
 
 
 def full_mask(num_paths: int, device="cpu") -> torch.Tensor:

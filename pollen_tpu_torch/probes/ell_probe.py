@@ -54,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from ..device import ell_tiers
 from ..kernels import crossmat as _cm
 from ..kernels import ellscan as _ell
 from .timing import events_us, time_call
@@ -134,15 +135,6 @@ def _ones(n, device):
     return torch.ones(n, dtype=torch.int32, device=device)
 
 
-def _tiers(dg):
-    """[(tall, k)] of the index's tiers, 1 to 3."""
-    out = [(dg.cross_ell, dg.ell_k)]
-    for tall, k in ((dg.cross_ell2, dg.ell_k2), (dg.cross_ell3, dg.ell_k3)):
-        if tall.numel():
-            out.append((tall, k))
-    return out
-
-
 def _diff(got, want) -> int:
     """Sum of |got - want| over pairs of int tensors (None on both sides
     skips; None on one side counts as a mismatch of -1)."""
@@ -202,7 +194,7 @@ def stage_ell(dg, n_steps, say=print) -> dict:
 
 def stage_ellraw(dg, n_steps, say=print) -> dict:
     """ellraw: K1 alone on the index's tiers and heavy block."""
-    tiers = _tiers(dg)
+    tiers = ell_tiers(dg)
     mask = _ones(dg.num_paths, dg.device)
     us, clock = time_call(
         lambda: _ell.masked_ell_splitn_depth(

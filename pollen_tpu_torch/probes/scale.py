@@ -53,7 +53,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..device import TENSOR_FIELDS, TorchGraph, build_graph, resolve_device
+from ..device import (
+    TENSOR_FIELDS,
+    TorchGraph,
+    build_graph,
+    ell_tiers,
+    resolve_device,
+)
 from ..flatgfa import GraphArrays
 from ..kernels import crossmat as _cm
 from ..kernels import ellscan as _ell
@@ -173,15 +179,6 @@ def _peak(device: torch.device) -> Optional[int]:
 def index_bytes(dg: TorchGraph) -> int:
     return sum(getattr(dg, f).numel() * getattr(dg, f).element_size()
                for f in TENSOR_FIELDS)
-
-
-def ell_tiers(dg: TorchGraph):
-    """The resident tall tiers as (tall, stored words) pairs, in order."""
-    tiers = [(dg.cross_ell, dg.ell_k)]
-    for tall, k in ((dg.cross_ell2, dg.ell_k2), (dg.cross_ell3, dg.ell_k3)):
-        if tall.numel():
-            tiers.append((tall, k))
-    return tiers
 
 
 def _slot_runs(slots: np.ndarray, segs: np.ndarray):

@@ -410,8 +410,8 @@ def test_tall_refuses_misaligned_tier():
 
 
 def test_splitn_heavy_block_alone():
-    """Tiers of no columns (how the kernel_ab probe times the heavy phase
-    alone): empty tier outputs, heavy outputs as in the whole call."""
+    """Tiers of no columns (the heavy phase launched alone): empty tier
+    outputs, heavy outputs as in the whole call."""
     rng = np.random.default_rng(15)
     p = 120
     tall, k = _tall_tier(rng, 2, 3000, p, pack16=True)

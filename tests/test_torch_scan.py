@@ -10,6 +10,7 @@ exact (int32 counts, tolerance 0; text byte for byte).
 """
 
 import dataclasses
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +30,6 @@ from pollen_tpu.ops import depth as ref_depth
 from pollen_tpu_torch.device import build_graph, from_host_arrays
 from pollen_tpu_torch.kernels import gatherb, runscan, segscan
 from pollen_tpu_torch.ops import depth as port_depth
-from pollen_tpu_torch.probes import scan_ladder
 from pollen_tpu_torch.synth import synth_graph
 from test_torch_depth import run_cli
 
@@ -155,22 +155,11 @@ def test_seg_scan_long_groups_match_reference(layout, head_carry):
         assert int(csf[-1]) == (1 if head_carry == 0 else 0)
 
 
-@pytest.mark.parametrize("variant", sorted(scan_ladder.PATCHES))
-def test_scan_ladder_patches_apply_to_the_shipped_header(variant):
-    """Each probe variant's patch finds its targets in csrc/common.cuh
-    exactly once (the probe builds the patched copy on the card)."""
-    source = (scan_ladder.PKG / scan_ladder.HEADER).read_text()
-    text = scan_ladder.patched(source, scan_ladder.PATCHES[variant])
-    assert (text == source) == (variant == "base")
-    with pytest.raises(ValueError, match="not found once"):
-        scan_ladder.patched(text, {"no such line in the header": ""})
-
-
 def test_scan_sources_have_only_the_single_pass():
     """K6 and K8 both launch through launch_scan_single; the three-launch
     template is gone; the look-back polls until a descriptor decodes as
     AGG or PREFIX (any other flag is not ready)."""
-    csrc = scan_ladder.PKG / "csrc"
+    csrc = pathlib.Path(__file__).resolve().parents[1] / "pollen_tpu_torch" / "csrc"
     common = (csrc / "common.cuh").read_text()
     scan = (csrc / "scan.cu").read_text()
     for gone in ("scan_reduce", "scan_totals", "scan_down", "scan_blocks",
